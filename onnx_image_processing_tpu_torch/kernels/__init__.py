@@ -1,0 +1,51 @@
+"""Hand-written CUDA kernels for Hopper + the one rule that routes to them.
+
+Every op with a kernel (select frontend, sparse sampler, Sinkhorn sweeps)
+asks :func:`use_kernel` about the tensor it was given: a CUDA tensor goes to
+the kernel, a CPU tensor to the kernel's plain PyTorch version. This is the
+counterpart of the JAX package's ``use_pallas_default``, decided per tensor
+instead of by a global platform. There is no fallback: on a CUDA tensor a
+wrapper launches its kernel or raises.
+
+Each wrapper counts its launches in a :class:`LaunchCounter`, so a run can
+show that its main path went through the kernels.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def use_kernel(t: torch.Tensor) -> bool:
+    """True for a CUDA tensor (kernel), False for a CPU tensor (plain version)."""
+    if t.is_cuda:
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"no kernel or plain version for device {t.device}")
+
+
+class LaunchCounter:
+    """Launch count of one kernel; its wrapper adds one per launch."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self.count = 0
+        _COUNTERS[name] = self
+
+
+_COUNTERS: dict[str, LaunchCounter] = {}
+
+
+def launch_counts() -> dict[str, int]:
+    """Launches per kernel since the last :func:`reset_launch_counts`."""
+    from . import select_frontend, sinkhorn_kernel, sparse_sampler  # noqa: F401 (registers)
+
+    return {name: c.count for name, c in _COUNTERS.items()}
+
+
+def reset_launch_counts() -> None:
+    from . import select_frontend, sinkhorn_kernel, sparse_sampler  # noqa: F401 (registers)
+
+    for c in _COUNTERS.values():
+        c.count = 0

@@ -1,0 +1,11 @@
+"""Pipelines of the port and their registry."""
+
+from .registry import PipelineSpec, build, get, names
+from .shi_tomasi_family import (ShiTomasiAngleSparseBADSinkhorn,
+                                shi_tomasi_angle_sparse_bad_sinkhorn_match)
+from .extraction import MatchExtraction, with_match_extraction
+
+__all__ = ["PipelineSpec", "build", "get", "names",
+           "ShiTomasiAngleSparseBADSinkhorn",
+           "shi_tomasi_angle_sparse_bad_sinkhorn_match", "MatchExtraction",
+           "with_match_extraction"]

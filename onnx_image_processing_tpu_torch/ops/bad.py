@@ -1,0 +1,267 @@
+"""Sparse BAD (Box Average Difference) descriptors (port of
+``onnx_image_processing_tpu/ops/bad.py``, the sparse path).
+
+The learned box-pair constants are data: ``load_bad_params`` reads the JAX
+package's ``data/bad_params_{256,512}.npz`` with numpy, and :class:`BADTable`
+holds what the descriptor path needs as module buffers, so ``.to(device)``
+moves the table with the model.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from pathlib import Path
+
+import numpy as np
+import torch
+from torch import nn
+
+import onnx_image_processing_tpu
+
+from ..kernels import sparse_sampler
+from .filters import edge_extend, pad2d
+from .sampling import sample_nearest
+
+_DATA_DIR = Path(onnx_image_processing_tpu.__file__).resolve().parent / "data"
+
+# Patch geometry of the sampler window, kept exactly as the JAX package's:
+# learned offsets lie in [-16, 15], so any rotation keeps |offset| < 23; row
+# origins are floored to multiples of 8, adding up to 7 px of slack; hence a
+# 56 x 56 window. Both packages then see the same windows.
+_PATCH_HALF = 23
+_PATCH = 56
+
+
+@dataclass(frozen=True)
+class BADParams:
+    """Learned BAD constants as host numpy; offsets are rectified around the
+    32x32 learned patch centre (raw minus 16)."""
+
+    offset_x1: np.ndarray  # (P,) f32
+    offset_x2: np.ndarray
+    offset_y1: np.ndarray
+    offset_y2: np.ndarray
+    radii: np.ndarray      # (P,) int32
+    thresholds: np.ndarray  # (P,) f32
+    num_pairs: int
+    max_radius: int
+
+
+def load_bad_params(num_pairs: int = 256) -> BADParams:
+    """Read the learned table for 256 or 512 pairs from the shipped npz."""
+    if num_pairs not in (256, 512):
+        raise ValueError(
+            f"num_pairs must be 256 or 512 to use learned BAD patterns, got {num_pairs}")
+    with np.load(_DATA_DIR / f"bad_params_{num_pairs}.npz") as z:
+        box_params = z["box_params"].astype(np.float32)
+        thresholds = z["thresholds"].astype(np.float32)
+    radii = box_params[:, 4].astype(np.int32)
+    return BADParams(
+        offset_x1=box_params[:, 0] - 16.0,
+        offset_x2=box_params[:, 1] - 16.0,
+        offset_y1=box_params[:, 2] - 16.0,
+        offset_y2=box_params[:, 3] - 16.0,
+        radii=radii,
+        thresholds=thresholds,
+        num_pairs=num_pairs,
+        max_radius=int(radii.max()),
+    )
+
+
+@dataclass(frozen=True)
+class SampleLayout:
+    """Unique-box sample axis of a pair table: each distinct (offset, radius)
+    box once, radius-major, so each radius group is one contiguous slice;
+    ``idx1``/``idx2`` map the learned pair order onto it."""
+
+    groups: tuple      # ((radius, lo, hi), ...) contiguous on the S axis
+    idx1: np.ndarray   # (P,) int32
+    idx2: np.ndarray
+    off_y: np.ndarray  # (S,) f32
+    off_x: np.ndarray
+
+
+def sample_layout(params: BADParams) -> SampleLayout:
+    """Port of ``_build_sample_layout``: 805 unique boxes at P=512."""
+    p = params.num_pairs
+    radii_np = np.asarray(params.radii)
+    order = np.argsort(radii_np, kind="stable")
+    inv_order_np = np.argsort(order)
+    radii_sorted = radii_np[order]
+
+    group_bounds = []
+    idx1_sorted = np.empty(p, np.int64)
+    idx2_sorted = np.empty(p, np.int64)
+    off_y_list, off_x_list = [], []
+    base = 0
+    lo = 0
+    for r in sorted(set(int(v) for v in np.unique(radii_sorted))):
+        hi = lo + int((radii_sorted == r).sum())
+        n_g = hi - lo
+        pts = np.stack([
+            np.concatenate([params.offset_y1[order][lo:hi],
+                            params.offset_y2[order][lo:hi]]),
+            np.concatenate([params.offset_x1[order][lo:hi],
+                            params.offset_x2[order][lo:hi]]),
+        ], axis=1)
+        uniq, inv = np.unique(pts, axis=0, return_inverse=True)
+        inv = inv.reshape(-1)
+        idx1_sorted[lo:hi] = base + inv[:n_g]
+        idx2_sorted[lo:hi] = base + inv[n_g:]
+        off_y_list.append(uniq[:, 0])
+        off_x_list.append(uniq[:, 1])
+        group_bounds.append((r, base, base + len(uniq)))
+        base += len(uniq)
+        lo = hi
+    return SampleLayout(
+        groups=tuple(group_bounds),
+        idx1=idx1_sorted[inv_order_np].astype(np.int32),
+        idx2=idx2_sorted[inv_order_np].astype(np.int32),
+        off_y=np.concatenate(off_y_list).astype(np.float32),
+        off_x=np.concatenate(off_x_list).astype(np.float32))
+
+
+class BADTable(nn.Module):
+    """A pair table as buffers: unique-box offsets ``off_y``/``off_x`` (S,),
+    per-sample box radius ``sample_radius`` (S,), the pair maps
+    ``idx1``/``idx2`` (P,) and ``thresholds`` (P,). ``groups``,
+    ``num_pairs`` and ``max_radius`` are plain attributes."""
+
+    def __init__(self, params: BADParams):
+        super().__init__()
+        layout = sample_layout(params)
+        self.num_pairs = params.num_pairs
+        self.max_radius = params.max_radius
+        self.groups = layout.groups
+        radius = np.empty(len(layout.off_y), np.int32)
+        for (r, lo, hi) in layout.groups:
+            radius[lo:hi] = r
+        self.register_buffer("off_y", torch.from_numpy(layout.off_y.copy()))
+        self.register_buffer("off_x", torch.from_numpy(layout.off_x.copy()))
+        self.register_buffer("sample_radius", torch.from_numpy(radius))
+        self.register_buffer("idx1", torch.from_numpy(layout.idx1.astype(np.int64)))
+        self.register_buffer("idx2", torch.from_numpy(layout.idx2.astype(np.int64)))
+        self.register_buffer("thresholds", torch.from_numpy(
+            np.asarray(params.thresholds, np.float32).copy()))
+
+
+def params_from_jax(bad_params) -> BADTable:
+    """The port's buffers from the JAX package's ``BADParams`` (any object
+    with its fields as numpy arrays), so both packages compute with one table."""
+    return BADTable(BADParams(
+        offset_x1=np.asarray(bad_params.offset_x1, np.float32),
+        offset_x2=np.asarray(bad_params.offset_x2, np.float32),
+        offset_y1=np.asarray(bad_params.offset_y1, np.float32),
+        offset_y2=np.asarray(bad_params.offset_y2, np.float32),
+        radii=np.asarray(bad_params.radii, np.int32),
+        thresholds=np.asarray(bad_params.thresholds, np.float32),
+        num_pairs=int(bad_params.num_pairs),
+        max_radius=int(bad_params.max_radius)))
+
+
+def _finalize(centered: torch.Tensor, binarize: bool, soft_binarize: bool,
+              temperature: float) -> torch.Tensor:
+    """Binarization options; a BAD bit is 1 when response <= threshold."""
+    if not binarize:
+        return centered
+    if soft_binarize:
+        return torch.sigmoid(-centered * temperature)
+    return (centered <= 0).to(centered.dtype)
+
+
+def box_sample_inputs(image: torch.Tensor, keypoints: torch.Tensor,
+                      table: BADTable,
+                      orientation_mm: tuple[torch.Tensor, torch.Tensor] | None = None):
+    """The sampler's inputs for ``keypoints`` on ``image``.
+
+    Sample positions are the table's unique-box offsets, rotated by the
+    keypoint's atan2(m01, m10) when ``orientation_mm`` is given, clamped to
+    the image; each keypoint's window origin is floored to 8 in y and
+    clamped to the image, as in the JAX package.
+
+    Returns:
+        ``(image_padded (B, H+2r, W+2r), start_y (B, K) int32,
+        start_x (B, K) int32, ly (B, K, S), lx (B, K, S))``.
+    """
+    x = image.to(torch.float32)[:, 0]
+    b, h, w = x.shape
+    ps = _PATCH
+    ky = keypoints[:, :, 0].clamp(0.0, float(h - 1))
+    kx = keypoints[:, :, 1].clamp(0.0, float(w - 1))
+    off_y = table.off_y[None, None, :]   # (1, 1, S)
+    off_x = table.off_x[None, None, :]
+
+    if orientation_mm is not None:
+        m10_s = sample_nearest(orientation_mm[0].to(torch.float32)[:, 0], ky, kx)
+        m01_s = sample_nearest(orientation_mm[1].to(torch.float32)[:, 0], ky, kx)
+        theta = torch.atan2(m01_s, m10_s)  # (B, K)
+        cos_t = torch.cos(theta)[..., None]
+        sin_t = torch.sin(theta)[..., None]
+        dy = off_x * sin_t + off_y * cos_t
+        dx = off_x * cos_t - off_y * sin_t
+    else:
+        dy, dx = off_y, off_x
+
+    pos_y = (ky[..., None] + dy).clamp(0.0, float(h - 1))
+    pos_x = (kx[..., None] + dx).clamp(0.0, float(w - 1))
+
+    # Images smaller than the window are edge-extended to ps x ps; sample
+    # positions stay clamped to the real image.
+    if h < ps or w < ps:
+        x = edge_extend(x, 0, max(h, ps) - h, 0, max(w, ps) - w)
+        h, w = x.shape[-2:]
+    start_y = (torch.div(torch.round(ky).to(torch.int32) - _PATCH_HALF, 8,
+                         rounding_mode="floor") * 8).clamp(0, (h - ps) // 8 * 8)
+    start_x = (torch.round(kx).to(torch.int32) - _PATCH_HALF).clamp(0, w - ps)
+    xp = pad2d(x, table.max_radius, table.max_radius, mode="edge")
+    ly = (pos_y - start_y[..., None].to(torch.float32)).clamp(0.0, ps - 1.0)
+    lx = (pos_x - start_x[..., None].to(torch.float32)).clamp(0.0, ps - 1.0)
+    return (xp.contiguous(), start_y.contiguous(), start_x.contiguous(),
+            ly.contiguous(), lx.contiguous())
+
+
+def sparse_bad(
+    image: torch.Tensor,
+    keypoints: torch.Tensor,
+    table: BADTable,
+    orientation_mm: tuple[torch.Tensor, torch.Tensor] | None = None,
+    binarize: bool = False,
+    soft_binarize: bool = True,
+    temperature: float = 10.0,
+    normalize_descriptors: bool = True,
+    sampling_mode: str = "nearest",
+) -> torch.Tensor:
+    """BAD descriptors at keypoint locations.
+
+    Args:
+        image: (B, 1, H, W) grayscale image.
+        keypoints: (B, K, 2) float (y, x); invalid slots are (-1, -1) and
+            get zero descriptors.
+        table: the pair table (:class:`BADTable`), on the image's device.
+        orientation_mm: optional (m10, m01) moment maps, each (B, 1, H, W),
+            from :func:`..ops.orientation.angle_moments`; sampled (nearest)
+            at the keypoints, atan2 per keypoint rotates the pair offsets.
+        sampling_mode: 'nearest' or 'bilinear' box-mean sampling.
+
+    Returns:
+        (B, K, P) descriptors, optionally L2-normalized.
+    """
+    if sampling_mode not in ("nearest", "bilinear"):
+        raise ValueError(f"sampling_mode must be 'nearest' or 'bilinear', got {sampling_mode}")
+    xp, start_y, start_x, ly, lx = box_sample_inputs(image, keypoints, table,
+                                                     orientation_mm)
+    samples = sparse_sampler.box_sample(
+        xp, start_y, start_x, ly, lx, table.sample_radius, table.groups,
+        _PATCH, table.max_radius, bilinear=sampling_mode == "bilinear")
+
+    s1 = samples[..., table.idx1]  # (B, K, P), learned pair order
+    s2 = samples[..., table.idx2]
+    centered = (s1 - s2) - table.thresholds[None, None, :]
+    desc = _finalize(centered, binarize, soft_binarize, temperature)
+    valid = (keypoints[:, :, 0] >= 0).to(torch.float32)
+    desc = desc * valid[..., None]
+    if normalize_descriptors:
+        # F.normalize: v / max(||v||_2, 1e-12)
+        norm = torch.sqrt((desc * desc).sum(dim=-1, keepdim=True))
+        desc = desc / norm.clamp_min(1e-12)
+    return desc

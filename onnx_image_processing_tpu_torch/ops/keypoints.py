@@ -1,0 +1,139 @@
+"""Max-pool NMS and static top-k keypoint selection (port of
+``onnx_image_processing_tpu/ops/keypoints.py``).
+
+Keypoints are (B, K, 2) float32 in (y, x) order; invalid slots are (-1, -1)
+with score 0. Top-k keeps ``lax.top_k``'s rule that equal values go lowest
+index first: ``torch.topk`` promises no tie order, so selection is a stable
+descending sort sliced to K. The JAX package's XLA-TPU sort tuning (chunked
+top-k, rank-2 folds) and its approximate mode are not ported.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .filters import maxpool2d_same
+
+_INT32_MAX = 2 ** 31 - 1
+
+
+def _top_k(vals: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Top-k along the last axis, equal values lowest index first."""
+    s, i = torch.sort(vals, dim=-1, descending=True, stable=True)
+    return s[..., :k], i[..., :k]
+
+
+def _decode_topk(topk_scores: torch.Tensor, topk_idx: torch.Tensor, w: int):
+    """Linear index -> (y, x); slots with score <= 0 -> (-1, -1) / 0."""
+    y = torch.div(topk_idx, w, rounding_mode="floor").to(torch.float32)
+    x = torch.remainder(topk_idx, w).to(torch.float32)
+    kpts = torch.stack([y, x], dim=-1)
+    valid = topk_scores > 0
+    kpts = torch.where(valid[..., None], kpts, -1.0)
+    return kpts, torch.where(valid, topk_scores, 0.0)
+
+
+def nms_maxpool(scores: torch.Tensor, nms_radius: int) -> torch.Tensor:
+    """(B, H, W) keep mask: 1.0 where ``score >= local_max - 1e-7`` over the
+    (2r+1)^2 window with a -inf border."""
+    local_max = maxpool2d_same(scores, nms_radius)
+    return (scores >= local_max - 1e-7).to(scores.dtype)
+
+
+def mask_scores(scores: torch.Tensor, nms_mask: torch.Tensor,
+                score_threshold: float, border_margin: int) -> torch.Tensor:
+    """NMS, border-margin and threshold masks applied to (B, H, W) scores."""
+    h, w = scores.shape[-2:]
+    masked = scores * nms_mask
+    if border_margin > 0:
+        m = border_margin
+        ys = torch.arange(h, device=scores.device)
+        xs = torch.arange(w, device=scores.device)
+        inside = (((ys >= m) & (ys < h - m))[:, None]
+                  & ((xs >= m) & (xs < w - m))[None, :])
+        masked = masked * inside.to(masked.dtype)
+    return torch.where(masked > score_threshold, masked, 0.0)
+
+
+def block_reduce(masked: torch.Tensor, bs: int, w: int):
+    """Per-(bs x bs) block max and the minimum raster index ``y * w + x``
+    among the block's maximal cells (port of ``_block_reduce_xla``).
+
+    ``masked`` (B, H, W) is zero-padded to whole blocks. Returns
+    ``(block_max (B, Hb, Wb) f32, block_idx (B, Hb, Wb) int32)``.
+    """
+    b, h, wd = masked.shape
+    hb, wb = -(-h // bs), -(-wd // bs)
+    padded = torch.nn.functional.pad(masked, (0, wb * bs - wd, 0, hb * bs - h))
+    blocks = padded.reshape(b, hb, bs, wb, bs)
+    block_max = blocks.amax(dim=(2, 4))
+    ys = torch.arange(hb * bs, dtype=torch.int32, device=masked.device)
+    xs = torch.arange(wb * bs, dtype=torch.int32, device=masked.device)
+    lin = (ys[:, None] * w + xs[None, :]).reshape(1, hb, bs, wb, bs)
+    is_max = blocks == block_max[:, :, None, :, None]
+    cand = torch.where(is_max, lin, _INT32_MAX)
+    return block_max, cand.amin(dim=(2, 4))
+
+
+def select_topk_keypoints(scores: torch.Tensor, nms_mask: torch.Tensor,
+                          max_keypoints: int, score_threshold: float = 0.0,
+                          border_margin: int = 0,
+                          nms_radius: int | None = None):
+    """Top-k surviving keypoints of a (B, H, W) score map.
+
+    ``nms_radius=None``: flat top-k over H*W. ``nms_radius=r`` (the radius of
+    ``nms_mask``): top-k over per-(r+1)^2 block maxima, which NMS makes
+    exact except that a block keeps one of several same-block score ties.
+
+    Returns:
+        keypoints (B, K, 2) float (y, x); scores (B, K).
+    """
+    b, h, w = scores.shape
+    masked = mask_scores(scores, nms_mask, score_threshold, border_margin)
+    if nms_radius is not None and nms_radius >= 1:
+        bs = nms_radius + 1
+        if -(-h // bs) * -(-w // bs) >= max_keypoints:
+            block_max, block_idx = block_reduce(masked, bs, w)
+            return _select_blocks(block_max, block_idx, max_keypoints, w)
+    topk_scores, topk_idx = _top_k(masked.reshape(b, h * w), max_keypoints)
+    return _decode_topk(topk_scores, topk_idx, w)
+
+
+def _select_blocks(block_max, block_idx, max_keypoints: int, w: int):
+    b = block_max.shape[0]
+    topk_scores, topk_block = _top_k(block_max.reshape(b, -1), max_keypoints)
+    topk_idx = torch.gather(block_idx.reshape(b, -1), 1, topk_block)
+    return _decode_topk(topk_scores, topk_idx.long(), w)
+
+
+def nms_select_topk(scores: torch.Tensor, max_keypoints: int,
+                    score_threshold: float = 0.0, border_margin: int = 0,
+                    nms_radius: int = 3, topk_mode: str = "block"):
+    """NMS + top-k keypoint selection from a raw (B, H, W) score map.
+
+    In block mode the NMS, masks and block reduction run as one pass, the
+    select-frontend kernel on a CUDA tensor and its plain version on a CPU
+    tensor; top-k and decode follow. ``topk_mode="sort"`` is the flat top-k.
+
+    Returns:
+        keypoints (B, K, 2) float (y, x); scores (B, K).
+    """
+    # Imported here: the kernel module's plain version is built from this
+    # module's functions.
+    from ..kernels import select_frontend
+
+    if topk_mode not in ("block", "sort"):
+        raise NotImplementedError(
+            f"topk_mode {topk_mode!r} is not ported (use 'block' or 'sort')")
+    b, h, w = scores.shape
+    use_blocks = topk_mode == "block" and nms_radius >= 1
+    if use_blocks:
+        bs = nms_radius + 1
+        use_blocks = -(-h // bs) * -(-w // bs) >= max_keypoints
+    if use_blocks:
+        block_max, block_idx = select_frontend.nms_block_reduce(
+            scores, nms_radius, score_threshold, border_margin)
+        return _select_blocks(block_max, block_idx, max_keypoints, w)
+    mask = nms_maxpool(scores, nms_radius)
+    return select_topk_keypoints(scores, mask, max_keypoints, score_threshold,
+                                 border_margin, nms_radius=None)

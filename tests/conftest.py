@@ -49,6 +49,11 @@ def pytest_configure(config):
         "tpu: on-hardware tier — compiled Pallas/Mosaic kernels vs CPU "
         "oracles; needs a real TPU and OIP_TPU_TESTS=1 (run: "
         "OIP_TPU_TESTS=1 pytest -m tpu)")
+    config.addinivalue_line(
+        "markers",
+        "cuda: PyTorch port's CUDA kernels vs their plain versions; skips "
+        "without a CUDA device (run on the GPU: python -m pytest "
+        "--noconftest -m cuda tests/test_torch_cuda_kernels.py)")
 
 
 def pytest_collection_modifyitems(config, items):
