@@ -1,11 +1,13 @@
 """onnx_image_processing_tpu_torch -- the PyTorch/CUDA port of
 ``onnx_image_processing_tpu``, for one NVIDIA Hopper card.
 
-The flagship two-image matcher (Shi-Tomasi + orientation + sparse BAD +
-Sinkhorn, with mutual-NN extraction) runs as PyTorch code around three
-hand-written CUDA kernels in ``csrc/`` (select frontend, sparse sampler,
-Sinkhorn sweeps). Each kernel has a plain PyTorch version beside it: a CUDA
-tensor goes to the kernel, a CPU tensor to the plain version. The JAX
+Two two-image matcher families run as PyTorch code: the flagship
+(Shi-Tomasi + orientation + sparse BAD + Sinkhorn, with mutual-NN
+extraction; also with ``fused_detect=True``) and the AKAZE matcher. Around
+them are five hand-written CUDA kernels in ``csrc/`` (select frontend,
+sparse sampler, Sinkhorn sweeps, detect frontend, AKAZE ladder). Each
+kernel has a plain PyTorch version beside it: a CUDA tensor goes to the
+kernel, a CPU tensor to the plain version. The JAX
 package stays the reference the port is tested against; this package
 imports no JAX.
 

@@ -1,7 +1,7 @@
 """Hand-written CUDA kernels for Hopper + the one rule that routes to them.
 
-Every op with a kernel (select frontend, sparse sampler, Sinkhorn sweeps)
-asks :func:`use_kernel` about the tensor it was given: a CUDA tensor goes to
+Every op with a kernel (select frontend, sparse sampler, Sinkhorn sweeps,
+detect frontend, AKAZE ladder) asks :func:`use_kernel` about the tensor it was given: a CUDA tensor goes to
 the kernel, a CPU tensor to the kernel's plain PyTorch version. This is the
 counterpart of the JAX package's ``use_pallas_default``, decided per tensor
 instead of by a global platform. There is no fallback: on a CUDA tensor a
@@ -37,15 +37,19 @@ class LaunchCounter:
 _COUNTERS: dict[str, LaunchCounter] = {}
 
 
+def _register_all() -> None:
+    """Import every kernel module, so each counter exists before it is read."""
+    from . import (akaze_ladder, detect_frontend, select_frontend,  # noqa: F401
+                   sinkhorn_kernel, sparse_sampler)
+
+
 def launch_counts() -> dict[str, int]:
     """Launches per kernel since the last :func:`reset_launch_counts`."""
-    from . import select_frontend, sinkhorn_kernel, sparse_sampler  # noqa: F401 (registers)
-
+    _register_all()
     return {name: c.count for name, c in _COUNTERS.items()}
 
 
 def reset_launch_counts() -> None:
-    from . import select_frontend, sinkhorn_kernel, sparse_sampler  # noqa: F401 (registers)
-
+    _register_all()
     for c in _COUNTERS.values():
         c.count = 0

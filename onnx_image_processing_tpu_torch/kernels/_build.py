@@ -22,13 +22,14 @@ import time
 from dataclasses import dataclass
 from pathlib import Path
 
+import numpy as np
 import torch
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 SOURCES = ("runtime.cu", "select_frontend.cu", "sparse_sampler.cu",
-           "sinkhorn.cu")
+           "sinkhorn.cu", "detect_frontend.cu", "akaze_ladder.cu")
 # sm_90a: Hopper's full instruction set. No --use_fast_math: the Sinkhorn
 # tolerance needs the full-precision expf/logf. -Xptxas -v reports each
 # kernel's registers, shared memory and spills into the build log.
@@ -46,6 +47,7 @@ class BuildResult:
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 _result: BuildResult | None = None
+_constants: dict[tuple, torch.Tensor] = {}
 
 
 def _nvcc() -> str:
@@ -137,3 +139,15 @@ def ptr(t: torch.Tensor) -> ctypes.c_void_p:
 def stream(t: torch.Tensor) -> ctypes.c_void_p:
     """PyTorch's current stream on ``t``'s device, for a kernel launch."""
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def constant(values: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A small float32 array (stencil taps) on ``device``, copied there once
+    and kept, so a launch does not wait on a host-to-device copy."""
+    values = np.ascontiguousarray(values, dtype=np.float32)
+    key = (values.tobytes(), str(device))
+    t = _constants.get(key)
+    if t is None:
+        t = torch.from_numpy(values.copy()).to(device)
+        _constants[key] = t
+    return t

@@ -1,8 +1,9 @@
 """Pipeline registry of the port: name -> module on a device.
 
-The two names of the flagship matcher, with the JAX registry's defaults
-(the reference's export defaults: 512 hard-binarized pairs, eps 0.05,
-nms radius 5, Shi-Tomasi block 5).
+The flagship matcher and the AKAZE family, with the JAX registry's
+defaults: the reference's export defaults (flagship: 512 hard-binarized
+pairs, eps 0.05, nms radius 5, Shi-Tomasi block 5; AKAZE matcher: 512
+unbinarized pairs, 1024 keypoints, eps 0.05, nms radius 3).
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import torch
 from torch import nn
 
 from ..core import MatcherConfig
+from .akaze_family import AKAZEDetector, AKAZESparseBADSinkhorn
 from .extraction import with_match_extraction
 from .shi_tomasi_family import ShiTomasiAngleSparseBADSinkhorn
 
@@ -28,8 +30,11 @@ class PipelineSpec:
 
 _REGISTRY: dict[str, PipelineSpec] = {}
 
+_BASE = MatcherConfig()
 _CI = MatcherConfig(num_pairs=512, max_keypoints=1024, binarize=True,
                     soft_binarize=False, epsilon=0.05, nms_radius=5)
+_AKAZE = MatcherConfig(num_pairs=512, max_keypoints=1024, epsilon=0.05,
+                       nms_radius=3)
 
 
 def register(spec: PipelineSpec) -> None:
@@ -68,3 +73,13 @@ register(PipelineSpec(
     lambda cfg: with_match_extraction(ShiTomasiAngleSparseBADSinkhorn(cfg)),
     _CI.with_(block_size=5),
     "rotation-invariant sparse matcher (flagship) + mutual-NN match extraction"))
+
+register(PipelineSpec("akaze", AKAZEDetector, _BASE,
+                      "AKAZE scores + orientation maps"))
+register(PipelineSpec(
+    "akaze_sparse_bad_sinkhorn", AKAZESparseBADSinkhorn, _AKAZE,
+    "AKAZE rotation-invariant sparse matcher"))
+register(PipelineSpec(
+    "akaze_sparse_bad_sinkhorn_extraction",
+    lambda cfg: with_match_extraction(AKAZESparseBADSinkhorn(cfg)), _AKAZE,
+    "AKAZE rotation-invariant sparse matcher + mutual-NN match extraction"))

@@ -171,13 +171,16 @@ def _finalize(centered: torch.Tensor, binarize: bool, soft_binarize: bool,
 
 def box_sample_inputs(image: torch.Tensor, keypoints: torch.Tensor,
                       table: BADTable,
-                      orientation_mm: tuple[torch.Tensor, torch.Tensor] | None = None):
+                      orientation_mm: tuple[torch.Tensor, torch.Tensor] | None = None,
+                      orientation: torch.Tensor | None = None,
+                      angles: torch.Tensor | None = None):
     """The sampler's inputs for ``keypoints`` on ``image``.
 
     Sample positions are the table's unique-box offsets, rotated by the
-    keypoint's atan2(m01, m10) when ``orientation_mm`` is given, clamped to
-    the image; each keypoint's window origin is floored to 8 in y and
-    clamped to the image, as in the JAX package.
+    keypoint's angle when one of ``orientation_mm``, ``orientation`` or
+    ``angles`` is given (see :func:`sparse_bad`), clamped to the image; each
+    keypoint's window origin is floored to 8 in y and clamped to the image,
+    as in the JAX package.
 
     Returns:
         ``(image_padded (B, H+2r, W+2r), start_y (B, K) int32,
@@ -191,10 +194,19 @@ def box_sample_inputs(image: torch.Tensor, keypoints: torch.Tensor,
     off_y = table.off_y[None, None, :]   # (1, 1, S)
     off_x = table.off_x[None, None, :]
 
-    if orientation_mm is not None:
+    if sum(o is not None for o in (orientation, orientation_mm, angles)) > 1:
+        raise ValueError("pass at most one of orientation, orientation_mm, angles")
+    if angles is not None:
+        theta = angles.to(torch.float32)  # (B, K)
+    elif orientation_mm is not None:
         m10_s = sample_nearest(orientation_mm[0].to(torch.float32)[:, 0], ky, kx)
         m01_s = sample_nearest(orientation_mm[1].to(torch.float32)[:, 0], ky, kx)
         theta = torch.atan2(m01_s, m10_s)  # (B, K)
+    elif orientation is not None:
+        theta = sample_nearest(orientation.to(torch.float32)[:, 0], ky, kx)
+    else:
+        theta = None
+    if theta is not None:
         cos_t = torch.cos(theta)[..., None]
         sin_t = torch.sin(theta)[..., None]
         dy = off_x * sin_t + off_y * cos_t
@@ -230,6 +242,8 @@ def sparse_bad(
     temperature: float = 10.0,
     normalize_descriptors: bool = True,
     sampling_mode: str = "nearest",
+    orientation: torch.Tensor | None = None,
+    angles: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """BAD descriptors at keypoint locations.
 
@@ -242,14 +256,19 @@ def sparse_bad(
             from :func:`..ops.orientation.angle_moments`; sampled (nearest)
             at the keypoints, atan2 per keypoint rotates the pair offsets.
         sampling_mode: 'nearest' or 'bilinear' box-mean sampling.
+        orientation: optional (B, 1, H, W) orientation map in radians (the
+            AKAZE frontend's), sampled (nearest) at the keypoints.
+        angles: optional (B, K) per-keypoint angles in radians, already
+            selected by the caller. At most one of ``orientation_mm``,
+            ``orientation`` and ``angles`` may be given.
 
     Returns:
         (B, K, P) descriptors, optionally L2-normalized.
     """
     if sampling_mode not in ("nearest", "bilinear"):
         raise ValueError(f"sampling_mode must be 'nearest' or 'bilinear', got {sampling_mode}")
-    xp, start_y, start_x, ly, lx = box_sample_inputs(image, keypoints, table,
-                                                     orientation_mm)
+    xp, start_y, start_x, ly, lx = box_sample_inputs(
+        image, keypoints, table, orientation_mm, orientation, angles)
     samples = sparse_sampler.box_sample(
         xp, start_y, start_x, ly, lx, table.sample_radius, table.groups,
         _PATCH, table.max_radius, bilinear=sampling_mode == "bilinear")

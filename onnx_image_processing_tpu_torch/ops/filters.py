@@ -81,12 +81,22 @@ def gaussian_taps(sigma: float, size: int) -> np.ndarray:
     return np.exp(-(t ** 2) / (2.0 * sigma ** 2)).astype(np.float32)
 
 
-def maxpool2d_same(x: torch.Tensor, radius: int) -> torch.Tensor:
-    """(2r+1)^2 max-pool, stride 1, same spatial shape, -inf border;
-    separable (column max, then row max)."""
+def moment_taps(sigma: float, size: int) -> tuple[np.ndarray, np.ndarray]:
+    """Taps of the orientation moments: the Gaussian ``g`` and ``t * g``
+    (t centered; its middle tap is 0), both float32."""
+    g = gaussian_taps(sigma, size)
+    t = np.arange(-(size // 2), size // 2 + 1, dtype=np.float32)
+    return g, (t * g).astype(np.float32)
+
+
+def maxpool2d_same(x: torch.Tensor, radius: int,
+                   pad_mode: str = "neg_inf") -> torch.Tensor:
+    """(2r+1)^2 max-pool, stride 1, same spatial shape; separable (column
+    max, then row max). The border is ``pad_mode``: 'neg_inf' (keypoint NMS)
+    or 'zero' (AKAZE's Hessian NMS, where outside cells count as 0)."""
     if radius <= 0:
         return x
-    xp = pad2d(x, radius, radius, mode="neg_inf")
+    xp = pad2d(x, radius, radius, mode=pad_mode)
     h, w = x.shape[-2], x.shape[-1]
     col = xp.narrow(-2, 0, h)
     for d in range(1, 2 * radius + 1):

@@ -2,10 +2,9 @@
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
-from .filters import conv1d_h, conv1d_w, gaussian_taps, pad2d
+from .filters import conv1d_h, conv1d_w, moment_taps, pad2d
 
 
 def angle_estimation(image: torch.Tensor, patch_size: int = 15,
@@ -26,10 +25,7 @@ def angle_moments(image: torch.Tensor, patch_size: int = 15,
         raise ValueError(f"sigma must be positive, got {sigma}")
     x = image.to(torch.float32)[:, 0]
     half = patch_size // 2
-    g = gaussian_taps(sigma, patch_size)
-    t = np.arange(-half, half + 1, dtype=np.float32)
-    tg = (t * g).astype(np.float32)
-
+    g, tg = moment_taps(sigma, patch_size)
     xp = pad2d(x, half, half, mode="zero")
     m10 = conv1d_w(conv1d_h(xp, g), tg)   # x-weighted moment
     m01 = conv1d_w(conv1d_h(xp, tg), g)   # y-weighted moment

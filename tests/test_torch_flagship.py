@@ -106,7 +106,10 @@ def test_port_imports_no_jax():
             "onnx_image_processing_tpu_torch.ops, "
             "onnx_image_processing_tpu_torch.kernels.select_frontend, "
             "onnx_image_processing_tpu_torch.kernels.sparse_sampler, "
-            "onnx_image_processing_tpu_torch.kernels.sinkhorn_kernel; "
+            "onnx_image_processing_tpu_torch.kernels.sinkhorn_kernel, "
+            "onnx_image_processing_tpu_torch.kernels.detect_frontend, "
+            "onnx_image_processing_tpu_torch.kernels.akaze_ladder, "
+            "onnx_image_processing_tpu_torch.tools.profile_paths; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')); "
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120,
@@ -120,7 +123,8 @@ def test_launch_counters_stay_zero_on_cpu(gray_image_pair):
     reset_launch_counts()
     fn(torch.from_numpy(img1), torch.from_numpy(img2))
     counts = launch_counts()
-    assert set(counts) == {"select_frontend", "sparse_sampler", "sinkhorn"}
+    assert set(counts) == {"select_frontend", "sparse_sampler", "sinkhorn",
+                           "detect_frontend", "akaze_ladder"}
     assert all(c == 0 for c in counts.values()), counts
 
 
@@ -136,8 +140,8 @@ def test_inputs_on_another_device_raise(gray_image_pair):
 
 def test_unported_options_raise():
     with pytest.raises(NotImplementedError):
-        models.build(NAME, fused_detect=True, device="cpu")
+        models.build(NAME, topk_mode="approx", device="cpu")
     with pytest.raises(NotImplementedError):
         models.build(NAME, distance_type="l1", device="cpu")
     with pytest.raises(KeyError):
-        models.build("akaze_sparse_bad_sinkhorn", device="cpu")
+        models.build("akaze_sparse_bad_sinkhorn_essential_matrix", device="cpu")

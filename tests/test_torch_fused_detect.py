@@ -1,0 +1,134 @@
+"""PyTorch port vs JAX: the detect frontend's plain version and the flagship
+with ``fused_detect=True``, on the CPU.
+
+Tolerances. Each map: within 2e-2, or within 1e-5 of the map's max|.|
+where that is larger. The first is the JAX package's bound for its own
+kernel against its oracle (``tests/test_kernels.py``); the second is the
+port's stencil bound against JAX (``tests/test_torch_stencils.py``), needed
+because the score reaches ~1e6, where one float32 ulp is 0.0625, and
+torch's CPU sqrt and XLA's round the last bit apart. NMS survivor maps
+differ on < 1e-4 of pixels. The
+fused flagship: equal keypoints, or at most 2 swaps per image, with P within
+5e-3 on the common keypoints. Fused vs unfused inside the port: keypoint
+sets within 2 swaps, descriptors within 2e-3 on the common keypoints.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import onnx_image_processing_tpu.kernels.detect_frontend as jdf
+from onnx_image_processing_tpu import models as jax_models
+from onnx_image_processing_tpu_torch import models
+from onnx_image_processing_tpu_torch.core import MatcherConfig
+from onnx_image_processing_tpu_torch.kernels import detect_frontend, launch_counts, reset_launch_counts
+from onnx_image_processing_tpu_torch.models.shi_tomasi_family import _sparse_detect_describe
+from onnx_image_processing_tpu_torch.ops import BADTable, load_bad_params
+
+NAME = "shi_tomasi_angle_sparse_bad_sinkhorn"
+K = 128
+P_ATOL = 5e-3
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
+@pytest.fixture
+def jax_kernel_interpreted(monkeypatch):
+    """JAX's detect frontend in interpret mode, as its own test runs it."""
+    orig = jdf.detect_frontend
+    monkeypatch.setattr(jdf, "detect_frontend",
+                        lambda *a, **kw: orig(*a, **{**kw, "interpret": True}))
+
+
+def _map_close(port, ref):
+    port, ref = np.asarray(port), np.asarray(ref)
+    assert port.shape == ref.shape
+    atol = max(2e-2, 1e-5 * float(np.abs(ref).max()))
+    np.testing.assert_allclose(port, ref, atol=atol, rtol=0)
+
+
+def test_detect_frontend_plain_matches_jax_kernel():
+    rng = np.random.default_rng(31)
+    img = rng.uniform(0, 255, (2, 1, 200, 300)).astype(np.float32)
+    got = [o.numpy() for o in detect_frontend.detect_frontend_plain(
+        torch.from_numpy(img), block_size=3, nms_radius=5)]
+    want = [np.asarray(o) for o in jdf.detect_frontend(jnp.asarray(img), interpret=True)]
+    for g, e in zip(got, want):
+        _map_close(g, e)
+    assert ((got[0] > 0) != (want[0] > 0)).mean() < 1e-4
+    assert (got[0] > 0).sum() > 100
+
+
+def test_detect_frontend_no_angle_matches_jax_kernel():
+    rng = np.random.default_rng(33)
+    img = rng.uniform(0, 255, (1, 1, 96, 144)).astype(np.float32)
+    got = detect_frontend.detect_frontend(torch.from_numpy(img), with_angle=False)
+    want = jdf.detect_frontend(jnp.asarray(img), with_angle=False, interpret=True)
+    assert got[1] is None and got[2] is None and want[1] is None
+    _map_close(got[0].numpy(), want[0])
+
+
+def _common_index(a, b):
+    inv_a = {tuple(v): i for i, v in enumerate(a.tolist())}
+    inv_b = {tuple(v): i for i, v in enumerate(b.tolist())}
+    shared = sorted(set(inv_a) & set(inv_b))
+    return (np.array([inv_a[v] for v in shared] + [len(a)]),
+            np.array([inv_b[v] for v in shared] + [len(b)]),
+            len(set(inv_a) ^ set(inv_b)))
+
+
+def test_fused_flagship_matches_jax_fused_flagship(gray_image_pair, jax_kernel_interpreted):
+    img1, img2 = gray_image_pair
+    k1j, k2j, pj = (np.asarray(o) for o in jax_models.build(
+        NAME, max_keypoints=K, fused_detect=True)(jnp.asarray(img1), jnp.asarray(img2)))
+    fn = models.build(NAME, max_keypoints=K, fused_detect=True, device="cpu")
+    assert fn.cfg.fused_detect
+    reset_launch_counts()
+    k1t, k2t, pt = (o.numpy() for o in fn(torch.from_numpy(img1), torch.from_numpy(img2)))
+    assert all(c == 0 for c in launch_counts().values())
+    assert pt.shape == pj.shape == (1, K + 1, K + 1)
+    assert (k1t[0, :, 0] >= 0).sum() > K // 4
+    ia1, ib1, s1 = _common_index(k1t[0], k1j[0])
+    ia2, ib2, s2 = _common_index(k2t[0], k2j[0])
+    assert max(s1, s2) <= 2, f"keypoint sets differ by {s1}, {s2}"
+    np.testing.assert_allclose(pt[0][np.ix_(ia1, ia2)], pj[0][np.ix_(ib1, ib2)],
+                               atol=P_ATOL, rtol=0)
+
+
+def test_fused_extraction_matches_jax(gray_image_pair, jax_kernel_interpreted):
+    img1, img2 = gray_image_pair
+    out_j = [np.asarray(o) for o in jax_models.build(
+        NAME + "_extraction", max_keypoints=K, max_matches=64,
+        fused_detect=True)(jnp.asarray(img1), jnp.asarray(img2))]
+    mk1, mk2, s, v = (o.numpy() for o in models.build(
+        NAME + "_extraction", max_keypoints=K, max_matches=64, fused_detect=True,
+        device="cpu")(torch.from_numpy(img1), torch.from_numpy(img2)))
+    assert v.sum() > 32
+    np.testing.assert_array_equal(v, out_j[3])
+    np.testing.assert_array_equal(mk1, out_j[0])
+    np.testing.assert_array_equal(mk2, out_j[1])
+    np.testing.assert_allclose(s, out_j[2], atol=P_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("topk_mode", ["block", "sort"])
+def test_fused_matches_unfused_in_the_port(topk_mode):
+    rng = np.random.default_rng(35)
+    both = torch.from_numpy(rng.uniform(0, 255, (2, 1, 120, 160)).astype(np.float32))
+    table = BADTable(load_bad_params(256))
+    cfg = MatcherConfig(max_keypoints=64, topk_mode=topk_mode)
+    kx, _, dx = _sparse_detect_describe(both, cfg, table)
+    kp, _, dp = _sparse_detect_describe(both, cfg.with_(fused_detect=True), table)
+    for b in range(2):
+        ix = {tuple(v): i for i, v in enumerate(kx[b].tolist())}
+        ip = {tuple(v): i for i, v in enumerate(kp[b].tolist())}
+        assert len(set(ix) ^ set(ip)) <= 2
+        for kpt in set(ix) & set(ip):
+            np.testing.assert_allclose(dp[b, ip[kpt]].numpy(), dx[b, ix[kpt]].numpy(),
+                                       atol=2e-3, rtol=0)
