@@ -26,6 +26,17 @@ Phases (any failed check raises; nothing falls back to the CPU):
 5. The AKAZE matcher at its registry defaults (1024 keypoints, 512 pairs):
    the checks of phase 3, then where its GPU and CPU runs part, stage by
    stage (printed, not checked).
+6. The flagship with its ratio / dustbin filters and the unoriented
+   matcher, as phase 3 (512 keypoints); the filters also fill >= 90% of the
+   slots on a self-match and give the same masks on the card and the CPU.
+7. The VO device path: 16 frames of a camera translating over a non-planar
+   texture (``vo_sequence``) through the streaming split of the AKAZE
+   essential pipeline (registry defaults, BASELINE config #5) and of the
+   flagship essential pipeline with the in-graph RANSAC (256 hypotheses, 2
+   polish steps), 100 matches at threshold 0.1, as the VO loop runs them:
+   launch counts per frame, streaming vs two-image on the card, E on the
+   card vs the CPU, E finite and rank 2, the median Sampson error of the
+   valid matches; ms per frame for extract and match, host syncs per frame.
 
 The last two lines are a JSON object of per-kernel results and
 ``{"ok": true, "device": {...}}``.
@@ -43,7 +54,10 @@ import numpy as np
 H, W = 480, 640
 MAX_KEYPOINTS, MAX_MATCHES = 512, 256
 SHIFT_X = 7
+VO_FRAMES, VO_STEP = 16, 3.0   # phase 7: frames and px of x-motion per frame (at d = 1)
 FLAGSHIP = "shi_tomasi_angle_sparse_bad_sinkhorn"
+FILTERS = FLAGSHIP + "_with_filters"
+UNORIENTED = "shi_tomasi_sparse_bad_sinkhorn"
 AKAZE = "akaze_sparse_bad_sinkhorn"
 
 # Tolerances on the card, kernel vs plain version.
@@ -62,6 +76,17 @@ P_ATOL = 5e-3           # P on the keypoints both runs selected
 VALID_RTOL = 0.02       # count of valid matches
 SELF_MIN_VALID = MAX_MATCHES  # self-match fills every slot on the card and the CPU
 DESC_ATOL = 2e-3        # fused vs unfused descriptors on common keypoints
+FILTERS_SELF_MIN = int(0.9 * MAX_MATCHES)  # with-filters self-match: >= 90% of slots
+# Phase 7, the VO device path (the VO CLI's settings).
+VO_MAX_MATCHES, VO_MATCH_THRESHOLD = 100, 0.1
+RANK2_MAX = 1e-3        # sigma3 / sigma1 of every E
+E_ATOL = 1e-2           # LS solve's E, card vs CPU, unit norm, up to sign
+SAMPSON_PX = 2.0        # median Sampson error bound (SAMPSON_PX / fx)^2
+# AKAZE's soft LS solve does not meet that bound on these frames in JAX
+# either: JAX 0.9.0 on the CPU gives a pooled median Sampson error of
+# 4364.585 x (2 / fx)^2 (the port on the CPU 4351.251 x). The AKAZE path is
+# held to 1.5x JAX's value; the RANSAC flagship to the bound itself.
+JAX_AKAZE_SAMPSON_RATIO = 4364.585
 
 
 def check(ok: bool, what: str) -> None:
@@ -80,26 +105,56 @@ def bench_pair(seed: int = 0):
     return (img1.astype(np.float32)[None, None], img2.astype(np.float32)[None, None])
 
 
+def _blur(a, r):
+    """Box blur of radius r along both axes, edges replicated."""
+    k = 2 * r + 1
+    for ax in (0, 1):
+        pad = [(r + 1, r) if i == ax else (0, 0) for i in range(2)]
+        c = np.cumsum(np.pad(a, pad, mode="edge"), axis=ax)
+        n = c.shape[ax]
+        a = (np.take(c, range(k, n), axis=ax) - np.take(c, range(0, n - k), axis=ax)) / k
+    return a
+
+
+def _texture(rng, h, w):
+    """Non-periodic texture: blurred uniform noise scaled to [0, 255]."""
+    tex = _blur(_blur(_blur(rng.uniform(0, 1, (h, w)), 2), 2), 2)
+    return 255 * (tex - tex.min()) / (tex.max() - tex.min())
+
+
 def texture_pair(seed: int = 1):
     """A non-periodic texture (blurred uniform noise) and its 7-px x-roll.
     bench.py's lattice repeats every ~56 px, so its matches cannot pin the
     shift; this texture's can."""
     rng = np.random.default_rng(seed)
-
-    def blur(a, r):
-        k = 2 * r + 1
-        for ax in (0, 1):
-            pad = [(r + 1, r) if i == ax else (0, 0) for i in range(2)]
-            c = np.cumsum(np.pad(a, pad, mode="edge"), axis=ax)
-            n = c.shape[ax]
-            a = (np.take(c, range(k, n), axis=ax) - np.take(c, range(0, n - k), axis=ax)) / k
-        return a
-
-    tex = blur(blur(blur(rng.uniform(0, 1, (H, W)), 2), 2), 2)
-    tex = 255 * (tex - tex.min()) / (tex.max() - tex.min())
+    tex = _texture(rng, H, W)
     img1 = np.clip(tex + rng.normal(0, 3, (H, W)), 0, 255)
     img2 = np.clip(np.roll(tex, SHIFT_X, 1) + rng.normal(0, 3, (H, W)), 0, 255)
     return (img1.astype(np.float32)[None, None], img2.astype(np.float32)[None, None])
+
+
+def vo_sequence(n_frames: int = VO_FRAMES, step: float = VO_STEP, seed: int = 2):
+    """Frames of a camera translating in x over a textured, non-planar
+    scene: frame i samples one larger texture at x + i * step * d(x, y),
+    with d, the inverse depth, a smooth non-affine bump field in [0.6, 1.4].
+    A pure pan (one shift for every pixel) would make the 8-point system
+    degenerate (a 3-dim null space); the parallax keeps E unique
+    (the camera's x-translation, epipolar lines horizontal). Each frame
+    gets its own noise; (1, 1, H, W) float32 each."""
+    rng = np.random.default_rng(seed)
+    amp = 0.4
+    tex = _texture(rng, H, W + int(np.ceil((n_frames - 1) * step * (1 + amp))) + 2)
+    yy, xx = np.mgrid[0:H, 0:W].astype(np.float64)
+    d = 1 + amp * np.sin(2 * np.pi * xx / W * 1.3 + 0.7) * np.cos(2 * np.pi * yy / H * 0.9)
+    frames = []
+    for i in range(n_frames):
+        xs = xx + i * step * d
+        x0 = np.floor(xs).astype(int)
+        f = xs - x0
+        img = ((1 - f) * np.take_along_axis(tex, x0, 1) + f * np.take_along_axis(tex, x0 + 1, 1)
+               + rng.normal(0, 2, (H, W)))
+        frames.append(np.clip(img, 0, 255).astype(np.float32)[None, None])
+    return frames
 
 
 def cuda_ms(fn, warmup: int = 3, reps: int = 25) -> float:
@@ -147,7 +202,9 @@ def run_path(label, name, overrides, g_pair, c_pair, expect_zero=(), self_min=0)
     kernel of the path > 0, those in ``expect_zero`` = 0), agreement with the
     same path on CPU copies, a self-match (identical coordinates in at least
     as many slots as the CPU run and ``self_min``) and the texture shift;
-    prints the ms per pair. Returns the launch counts and the CUDA matcher."""
+    prints the ms per pair. Outputs past the fourth (the filters' valid
+    mask) pass through. Returns the launch counts, the CUDA matcher and the
+    matcher's outputs on the card and on the CPU, as numpy arrays."""
     import torch
     from onnx_image_processing_tpu_torch import models
     from onnx_image_processing_tpu_torch.kernels import launch_counts, reset_launch_counts
@@ -165,7 +222,7 @@ def run_path(label, name, overrides, g_pair, c_pair, expect_zero=(), self_min=0)
             check(c == 0, f"[{label}] kernel {k} launched {c} times, expected none")
         else:
             check(c > 0, f"[{label}] kernel {k} was not launched by the path")
-    mk1, mk2, ms, mv = (t.cpu().numpy() for t in out)
+    mk1, mk2, ms, mv, *_ = (t.cpu().numpy() for t in out)
     check(mk1.shape == (1, MAX_MATCHES, 2) and ms.shape == (1, MAX_MATCHES),
           f"[{label}] extraction output shapes {mk1.shape} {ms.shape}")
     check(bool(np.isfinite(ms).all() and np.isfinite(mk1).all()), f"[{label}] non-finite outputs")
@@ -174,8 +231,9 @@ def run_path(label, name, overrides, g_pair, c_pair, expect_zero=(), self_min=0)
     cpu_matcher = models.build(name, device="cpu", **kw)
     cpu_extraction = models.build(name + "_extraction", device="cpu", **kw)
     k = matcher.cfg.max_keypoints
-    k1g, k2g, pg = (t.cpu().numpy() for t in matcher(*g_pair))
-    k1c, k2c, pc = (t.numpy() for t in cpu_matcher(*c_pair))
+    gout = [t.cpu().numpy() for t in matcher(*g_pair)]
+    cout = [t.numpy() for t in cpu_matcher(*c_pair)]
+    (k1g, k2g, pg), (k1c, k2c, pc) = gout[:3], cout[:3]
     check(bool(np.isfinite(pg).all()) and pg.shape == (1, k + 1, k + 1),
           f"[{label}] P shape {pg.shape} or non-finite")
     p_diff, swaps = p_common_diff(k1g[0], k2g[0], pg[0], k1c[0], k2c[0], pc[0])
@@ -188,7 +246,7 @@ def run_path(label, name, overrides, g_pair, c_pair, expect_zero=(), self_min=0)
     print(f"[{label}] valid matches: GPU {nv_g}, CPU {nv_c}")
     check(abs(nv_g - nv_c) <= VALID_RTOL * nv_c, f"[{label}] valid match counts differ by more than 2%")
 
-    sk1, sk2, _, sv = (t.cpu().numpy() for t in extraction(g_pair[0], g_pair[0]))
+    sk1, sk2, _, sv, *_ = (t.cpu().numpy() for t in extraction(g_pair[0], g_pair[0]))
     self_valid = int(sv.sum())
     self_cpu = int(cpu_extraction(c_pair[0], c_pair[0])[3].sum())
     same = bool((sk1[sv] == sk2[sv]).all())
@@ -197,7 +255,7 @@ def run_path(label, name, overrides, g_pair, c_pair, expect_zero=(), self_min=0)
     check(same and self_valid >= max(self_cpu, self_min), f"[{label}] self-match")
 
     t1, t2 = (torch.from_numpy(a).to(dev) for a in texture_pair())
-    tk1, tk2, _, tv = (t.cpu().numpy() for t in extraction(t1, t2))
+    tk1, tk2, _, tv, *_ = (t.cpu().numpy() for t in extraction(t1, t2))
     d = (tk2 - tk1)[tv]
     dx, dy = float(np.median(d[:, 1])), float(np.median(d[:, 0]))
     print(f"[{label}] shift: texture rolled {SHIFT_X} px in x -> {int(tv.sum())} valid "
@@ -214,7 +272,188 @@ def run_path(label, name, overrides, g_pair, c_pair, expect_zero=(), self_min=0)
             times.append((time.perf_counter() - t0) * 1e3)
     print(f"[{label}] {np.median(times):.3f} ms per pair (median of {len(times)} calls, "
           f"host clock around synchronized calls)")
-    return counts, matcher
+    return counts, matcher, (gout, cout)
+
+
+def sampson_median(e, mk1, mk2, k_inv) -> float:
+    """Median Sampson error (normalized units, float64) of matched (y, x)
+    pixel pairs under E."""
+    def norm(k):
+        return np.c_[k[:, 1], k[:, 0], np.ones(len(k))] @ k_inv.T.astype(np.float64)
+    x1, x2, e = norm(mk1), norm(mk2), e.astype(np.float64)
+    l2, l1 = x1 @ e.T, x2 @ e
+    err = (l2 * x2).sum(1) ** 2 / (l2[:, 0] ** 2 + l2[:, 1] ** 2 + l1[:, 0] ** 2 + l1[:, 1] ** 2)
+    return float(np.median(err))
+
+
+def e_diff(a, b) -> float:
+    """Max abs difference of two E's, each scaled to unit Frobenius norm,
+    up to sign."""
+    a = a.astype(np.float64) / np.linalg.norm(a)
+    b = b.astype(np.float64) / np.linalg.norm(b)
+    return float(min(np.abs(a - b).max(), np.abs(a + b).max()))
+
+
+def run_vo(label, name, overrides, frames_g, frames_c, k_inv, expect_zero, sampson_max):
+    """Drive the VO device path on the card as the VO loop does: the
+    streaming split with mutual-NN extraction, each new frame extracted once
+    and matched against the cached features of the frame before it, one
+    host copy of the outputs per frame. Checks per-frame launch counts,
+    streaming vs the two-image module, E on the card vs on the CPU, E
+    finite and rank 2, and the pooled median Sampson error of the valid
+    matches under E; prints ms per frame, host syncs (and where each one is
+    made) and launches per frame.
+    Returns the launch counts summed over the frames."""
+    import traceback
+    import warnings
+
+    import torch
+    from onnx_image_processing_tpu_torch import models
+    from onnx_image_processing_tpu_torch.cli.visual_odometry import to_host
+    from onnx_image_processing_tpu_torch.models.essential_family import essential_from_match
+    from onnx_image_processing_tpu_torch.models.extraction import append_mutual_matches
+    from onnx_image_processing_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    dev = frames_g[0].device
+    kw = dict(max_matches=VO_MAX_MATCHES, match_threshold=VO_MATCH_THRESHOLD, **overrides)
+    extract, match = models.build_streaming(name + "_extraction", device=dev, **kw)
+    kinv_g, kinv_c = torch.from_numpy(k_inv).to(dev), torch.from_numpy(k_inv)
+
+    # Pass 1: the counted run, frame by frame.
+    totals: dict[str, int] = {}
+    per_frame, host = [], []
+    ref = extract(frames_g[0])
+    for img in frames_g[1:]:
+        reset_launch_counts()
+        feats = extract(img)
+        host.append(to_host(match(ref, feats, kinv_g)))
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        per_frame.append(counts)
+        for k, c in counts.items():
+            totals[k] = totals.get(k, 0) + c
+        ref = feats
+    print(f"[{label}] launches per frame:", json.dumps(per_frame[0], sort_keys=True),
+          f"(the same in all {len(per_frame)} frames: {all(c == per_frame[0] for c in per_frame)})")
+    for counts in per_frame:
+        for k, c in counts.items():
+            if k in expect_zero:
+                check(c == 0, f"[{label}] kernel {k} launched {c} times in a frame, expected none")
+            else:
+                check(c > 0, f"[{label}] kernel {k} was not launched in a frame")
+
+    meds, ranks, nvalid = [], [], []
+    for mk1, mk2, _, valid, e in host:
+        check(e.shape == (3, 3) and bool(np.isfinite(e).all()), f"[{label}] E not finite")
+        sv = np.linalg.svd(e.astype(np.float64), compute_uv=False)
+        ranks.append(sv[2] / sv[0])
+        v = valid[0]
+        nvalid.append(int(v.sum()))
+        meds.append(sampson_median(e, mk1[0][v], mk2[0][v], k_inv))
+    pooled = float(np.median(meds))
+    print(f"[{label}] valid matches per frame {nvalid}; sigma3/sigma1 of E at most "
+          f"{max(ranks):.3e} (max {RANK2_MAX}); median Sampson error {pooled:.4e} "
+          f"(pooled over frames; per frame {min(meds):.3e}..{max(meds):.3e}), "
+          f"max {sampson_max:.4e}")
+    check(max(ranks) < RANK2_MAX, f"[{label}] E not rank 2")
+    check(pooled <= sampson_max, f"[{label}] median Sampson error {pooled} > {sampson_max}")
+
+    # Streaming vs the two-image module on one frame pair, on the card.
+    two = models.build(name, device=dev, **kw)
+    f0, f1 = frames_g[0], frames_g[1]
+    stacked = two.features(torch.cat([f0, f1]))
+    per_image = [extract(f0), extract(f1)]
+    same = all(torch.equal(t[b:b + 1], per_image[b][i])
+               for i, t in enumerate(stacked) for b in (0, 1))
+    s_out = models.build_streaming(name, device=dev, **kw)[1](*per_image, kinv_g)
+    t_out = two(f0, f1, kinv_g)
+    p_gap = (s_out[2] - t_out[2]).abs().max().item()
+    e_gap = e_diff(s_out[3].cpu().numpy(), t_out[3].cpu().numpy())
+    print(f"[{label}] streaming vs two-image on the card: keypoints, scores and "
+          f"descriptors bit-identical {same}; P max abs diff {p_gap:.3e}, E diff {e_gap:.3e}")
+    check(same, f"[{label}] streaming features differ from the stacked pair's")
+    check(p_gap <= P_ATOL, f"[{label}] streaming P differs by {p_gap}")
+
+    # E on the card vs the port on CPU copies, on two frame pairs: the whole
+    # path, and the solve alone on the CPU's keypoints, scores and P moved
+    # to the card. The soft LS solve is continuous in P and is held to
+    # E_ATOL. RANSAC is not: its hypothesis solves run a float32 Cholesky at
+    # condition ~1e6, so rounding moves their MSAC scores and the argmax
+    # may pick another all-inlier hypothesis (on the CPU alone a 1e-5
+    # change of P moves E by up to 0.06 on these frames). RANSAC's E is held
+    # by its fit: the card's E must fit the CPU's matches within 1.5x of the
+    # CPU's own E, or within the 2-px bound.
+    ransac = two.cfg.essential_ransac_hypotheses > 0
+    cpu = models.build(name, device="cpu", **kw)
+    fit_bound = float(SAMPSON_PX * k_inv[0, 0]) ** 2
+    for i in (0, len(frames_g) // 2):
+        fc1, fc2 = cpu.features(frames_c[i]), cpu.features(frames_c[i + 1])
+        k1c, k2c, pc, ec = cpu.tail(fc1, fc2, kinv_c)
+        k1g, k2g, pg, eg = two(frames_g[i], frames_g[i + 1], kinv_g)
+        p_gap, swaps = p_common_diff(k1g[0].cpu().numpy(), k2g[0].cpu().numpy(),
+                                     pg[0].cpu().numpy(), k1c[0].numpy(), k2c[0].numpy(),
+                                     pc[0].numpy())
+        e_geo = essential_from_match(k1c.to(dev), fc1[1].to(dev), k2c.to(dev),
+                                     fc2[1].to(dev), pc.to(dev), kinv_g, two.cfg).cpu().numpy()
+        eg, ec = eg.cpu().numpy(), ec.numpy()
+        gap, geo_gap = e_diff(eg, ec), e_diff(e_geo, ec)
+        mk1, mk2, _, v = (t.numpy() for t in append_mutual_matches((k1c, k2c, pc), cpu.cfg))
+        mk1, mk2 = mk1[0][v[0]], mk2[0][v[0]]
+        fit_c, fit_g, fit_geo = (sampson_median(e, mk1, mk2, k_inv) for e in (ec, eg, e_geo))
+        fit_max = max(1.5 * fit_c, fit_bound)
+        print(f"[{label}] frames {i}-{i + 1}, GPU vs CPU: keypoint set difference {swaps}, "
+              f"P max abs diff on common keypoints {p_gap:.3e}; E diff (unit norm, up to "
+              f"sign) {gap:.3e}, the solve alone on the CPU's P {geo_gap:.3e}"
+              f"{'' if ransac else f' (max {E_ATOL})'}; median Sampson error of the CPU's "
+              f"{len(mk1)} matches under the CPU's E {fit_c:.4e}, the card's {fit_g:.4e}, "
+              f"the card's solve alone {fit_geo:.4e} (max {fit_max:.4e})")
+        check(fit_g <= fit_max and fit_geo <= fit_max,
+              f"[{label}] the card's E does not fit the CPU's matches")
+        if not ransac:
+            check(geo_gap <= E_ATOL, f"[{label}] the solve on the card differs by {geo_gap}")
+            if swaps == 0:
+                check(gap <= E_ATOL, f"[{label}] E on the card differs from the CPU's by {gap}")
+
+    # Pass 2: ms per frame, host clock around synchronized stages.
+    ext_ms, match_ms, pair_ms = [], [], []
+    ref = extract(frames_g[0])
+    for img in frames_g[1:]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        feats = extract(img)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        to_host(match(ref, feats, kinv_g))
+        t2 = time.perf_counter()
+        ext_ms.append((t1 - t0) * 1e3)
+        match_ms.append((t2 - t1) * 1e3)
+        pair_ms.append((t2 - t0) * 1e3)
+        ref = feats
+    # Host syncs of one frame: PyTorch warns at each synchronizing call; the
+    # innermost frame of the port (or of this script) names the call.
+    syncs = []
+
+    def record(message, *_):
+        if "synchronizing CUDA operation" in str(message):
+            site = [f for f in traceback.extract_stack()[:-1]
+                    if "onnx_image_processing_tpu_torch" in f.filename
+                    or f.filename.endswith("chip_smoke.py")][-1]
+            syncs.append(f"{site.filename.split('/')[-1]}:{site.lineno} {site.line}")
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        to_host(match(ref, extract(frames_g[1]), kinv_g))
+        torch.cuda.set_sync_debug_mode(0)
+    print(f"[{label}] ms per frame (median of {len(pair_ms)}, host clock around synchronized "
+          f"calls): extract {np.median(ext_ms):.3f}, match + host copy "
+          f"{np.median(match_ms):.3f}, frame {np.median(pair_ms):.3f}; host syncs per "
+          f"frame {len(syncs)}")
+    for site in sorted(set(syncs)):
+        print(f"[{label}]   sync x{syncs.count(site)} at {site}")
+    return totals
 
 
 def akaze_gap(both, akaze, lad_args) -> None:
@@ -454,7 +693,7 @@ def main() -> None:
                                   self_min=SELF_MIN_VALID)[0]}
 
     # ---- phase 4: the flagship with the fused detect frontend --------------
-    counts, fused = run_path("fused", FLAGSHIP, dict(flag_kw, fused_detect=True), (g1, g2),
+    counts, fused, _ = run_path("fused", FLAGSHIP, dict(flag_kw, fused_detect=True), (g1, g2),
                              (c1, c2), expect_zero=("select_frontend", "akaze_ladder"),
                              self_min=SELF_MIN_VALID)
     paths["fused"] = counts
@@ -477,12 +716,44 @@ def main() -> None:
                               expect_zero=("detect_frontend",))[0]
     akaze_gap(both, akaze, lad_args)
 
+    # ---- phase 6: the with-filters and the unoriented matchers --------------
+    unfused_zero = ("detect_frontend", "akaze_ladder")
+    counts, _, (gout, cout) = run_path("filters", FILTERS, flag_kw, (g1, g2), (c1, c2),
+                                       expect_zero=unfused_zero, self_min=FILTERS_SELF_MIN)
+    paths["filters"] = counts
+    ig = {tuple(v): i for i, v in enumerate(gout[0][0].tolist())}
+    ic = {tuple(v): i for i, v in enumerate(cout[0][0].tolist())}
+    common = sorted(set(ig) & set(ic))
+    flips = sum(int(gout[3][0][ig[v]] != cout[3][0][ic[v]]) for v in common)
+    print(f"[filters] filter masks GPU vs CPU: {flips} of {len(common)} common keypoints differ "
+          f"({int(gout[3].sum())} vs {int(cout[3].sum())} rows pass)")
+    check(flips == 0, "[filters] filter masks differ between the card and the CPU")
+    paths["unoriented"] = run_path("unoriented", UNORIENTED, flag_kw, (g1, g2), (c1, c2),
+                                   expect_zero=unfused_zero, self_min=SELF_MIN_VALID)[0]
+
+    # ---- phase 7: the VO device path ----------------------------------------
+    frames = vo_sequence()
+    frames_g = [torch.from_numpy(f).to(dev) for f in frames]
+    frames_c = [torch.from_numpy(f) for f in frames]
+    fx = 0.8 * W  # the VO CLI's default intrinsics
+    k_inv = np.linalg.inv(np.array([[fx, 0, W / 2], [0, fx, H / 2], [0, 0, 1]])).astype(np.float32)
+    bound = (SAMPSON_PX / fx) ** 2
+    print(f"[VO] {len(frames)} frames {H}x{W}, x-motion {VO_STEP} px per frame times an "
+          f"inverse depth in [0.6, 1.4]; fx {fx}; Sampson bound (2 px / fx)^2 = {bound:.4e}")
+    paths["VO AKAZE"] = run_vo("VO AKAZE", AKAZE + "_essential_matrix", {}, frames_g, frames_c,
+                               k_inv, ("detect_frontend",),
+                               1.5 * JAX_AKAZE_SAMPSON_RATIO * bound)
+    paths["VO RANSAC"] = run_vo(
+        "VO RANSAC", FLAGSHIP + "_essential_matrix",
+        dict(essential_ransac_hypotheses=256, essential_irls_iters=2), frames_g, frames_c,
+        k_inv, unfused_zero, bound)
+
     sources = {"select_frontend": ("select_frontend.cu", "select_frontend.py:329"),
                "sparse_sampler": ("sparse_sampler.cu", "sparse_sampler.py:411"),
                "sinkhorn": ("sinkhorn.cu", "sinkhorn_kernel.py:111"),
                "detect_frontend": ("detect_frontend.cu", "detect_frontend.py:300"),
                "akaze_ladder": ("akaze_ladder.cu", "akaze_ladder.py:161")}
-    # Launches: the sum over the three path runs (each read right after its run).
+    # Launches: the sum over the path runs (each read right after its run).
     launches = {k: sum(c[k] for c in paths.values()) for k in sources}
     kernels = []
     for name, (cu, tpu) in sources.items():

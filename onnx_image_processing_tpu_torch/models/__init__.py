@@ -1,14 +1,26 @@
-"""Pipelines of the port and their registry."""
+"""Pipelines of the port, their registry and their streaming split."""
 
-from .registry import PipelineSpec, build, get, names
+from .registry import PipelineSpec, Standalone, build, get, names
 from .shi_tomasi_family import (ShiTomasiAngleSparseBADSinkhorn,
-                                shi_tomasi_angle_sparse_bad_sinkhorn_match)
+                                ShiTomasiAngleSparseBADSinkhornWithFilters,
+                                ShiTomasiSparseBADSinkhorn, SparseMatcher,
+                                shi_tomasi_angle_sparse_bad_sinkhorn_match,
+                                shi_tomasi_angle_sparse_bad_sinkhorn_match_with_filters,
+                                shi_tomasi_sparse_bad_sinkhorn_match)
 from .extraction import MatchExtraction, with_match_extraction
-from .akaze_family import (AKAZEDetector, AKAZESparseBADSinkhorn,
-                           akaze_sparse_bad_sinkhorn_match)
+from .akaze_family import AKAZESparseBADSinkhorn, akaze_sparse_bad_sinkhorn_match
+from .essential_family import (AKAZESparseBADSinkhornEssential,
+                               ShiTomasiAngleSparseBADSinkhornEssential,
+                               essential_from_match)
+from .streaming import build_streaming, streaming_names, supports_streaming
 
-__all__ = ["PipelineSpec", "build", "get", "names",
-           "ShiTomasiAngleSparseBADSinkhorn",
-           "shi_tomasi_angle_sparse_bad_sinkhorn_match", "MatchExtraction",
-           "with_match_extraction", "AKAZEDetector", "AKAZESparseBADSinkhorn",
-           "akaze_sparse_bad_sinkhorn_match"]
+__all__ = ["PipelineSpec", "Standalone", "build", "get", "names", "SparseMatcher",
+           "ShiTomasiAngleSparseBADSinkhorn", "ShiTomasiSparseBADSinkhorn",
+           "ShiTomasiAngleSparseBADSinkhornWithFilters",
+           "shi_tomasi_angle_sparse_bad_sinkhorn_match",
+           "shi_tomasi_angle_sparse_bad_sinkhorn_match_with_filters",
+           "shi_tomasi_sparse_bad_sinkhorn_match", "MatchExtraction",
+           "with_match_extraction", "AKAZESparseBADSinkhorn",
+           "akaze_sparse_bad_sinkhorn_match", "AKAZESparseBADSinkhornEssential",
+           "ShiTomasiAngleSparseBADSinkhornEssential", "essential_from_match",
+           "build_streaming", "streaming_names", "supports_streaming"]

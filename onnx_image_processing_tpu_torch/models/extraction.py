@@ -4,16 +4,29 @@ from __future__ import annotations
 
 from torch import nn
 
+from ..core import MatcherConfig
 from ..ops import extract_mutual_matches
+
+
+def append_mutual_matches(outputs, cfg: MatcherConfig):
+    """``(kpts1, kpts2, P, *extras)`` -> ``(matched_kpts1 (B, M, 2),
+    matched_kpts2 (B, M, 2), match_scores (B, M), match_valid (B, M),
+    *extras)`` with M = ``cfg.max_matches``."""
+    kpts1, kpts2, probs, *extras = outputs
+    mk1, mk2, scores, valid = extract_mutual_matches(
+        probs, kpts1, kpts2, max_matches=cfg.max_matches,
+        threshold=cfg.match_threshold)
+    return (mk1, mk2, scores, valid, *extras)
 
 
 class MatchExtraction(nn.Module):
     """A matcher post-composed with mutual-NN match extraction.
 
-    ``matcher(image1, image2)`` returns ``(kpts1, kpts2, P, *extras)``; this
-    module returns ``(matched_kpts1 (B, M, 2), matched_kpts2 (B, M, 2),
-    match_scores (B, M), match_valid (B, M), *extras)`` with
-    M = ``matcher.cfg.max_matches``.
+    ``forward(*inputs)`` passes every input through to the matcher (two
+    images, and ``k_inv`` for the essential pipelines); the matcher returns
+    ``(kpts1, kpts2, P, *extras)`` and this module returns
+    :func:`append_mutual_matches` of that (extras such as the filters'
+    valid mask or E pass through).
     """
 
     def __init__(self, matcher: nn.Module):
@@ -21,12 +34,12 @@ class MatchExtraction(nn.Module):
         self.matcher = matcher
         self.cfg = matcher.cfg
 
-    def forward(self, image1, image2):
-        kpts1, kpts2, probs, *extras = self.matcher(image1, image2)
-        mk1, mk2, scores, valid = extract_mutual_matches(
-            probs, kpts1, kpts2, max_matches=self.cfg.max_matches,
-            threshold=self.cfg.match_threshold)
-        return (mk1, mk2, scores, valid, *extras)
+    @property
+    def device(self):
+        return self.matcher.device
+
+    def forward(self, *inputs):
+        return append_mutual_matches(self.matcher(*inputs), self.cfg)
 
 
 def with_match_extraction(matcher: nn.Module) -> MatchExtraction:

@@ -1,13 +1,17 @@
 """Pipeline registry of the port: name -> module on a device.
 
-The flagship matcher and the AKAZE family, with the JAX registry's
-defaults: the reference's export defaults (flagship: 512 hard-binarized
-pairs, eps 0.05, nms radius 5, Shi-Tomasi block 5; AKAZE matcher: 512
-unbinarized pairs, 1024 keypoints, eps 0.05, nms radius 3).
+The ported sparse matchers (flagship, its with-filters variant, the
+unoriented matcher, AKAZE, the two essential-matrix pipelines), their
+``_extraction`` wrappers, the ``akaze`` head and the standalone ``sinkhorn``
+and ``essential_matrix_estimator``, each with the JAX registry's defaults:
+the reference's export defaults (flagship: 512 hard-binarized pairs, eps
+0.05, nms radius 5, Shi-Tomasi block 5; AKAZE matcher: 512 unbinarized
+pairs, 1024 keypoints, eps 0.05, nms radius 3).
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Callable
 
@@ -15,9 +19,15 @@ import torch
 from torch import nn
 
 from ..core import MatcherConfig
-from .akaze_family import AKAZEDetector, AKAZESparseBADSinkhorn
+from ..geometry import estimate_essential_matrix
+from .akaze_family import AKAZESparseBADSinkhorn, akaze_detect_cfg
+from .essential_family import (AKAZESparseBADSinkhornEssential,
+                               ShiTomasiAngleSparseBADSinkhornEssential)
 from .extraction import with_match_extraction
-from .shi_tomasi_family import ShiTomasiAngleSparseBADSinkhorn
+from .shi_tomasi_family import (ShiTomasiAngleSparseBADSinkhorn,
+                                ShiTomasiAngleSparseBADSinkhornWithFilters,
+                                ShiTomasiSparseBADSinkhorn, _check_devices,
+                                sinkhorn_cfg)
 
 
 @dataclass(frozen=True)
@@ -26,6 +36,7 @@ class PipelineSpec:
     factory: Callable[[MatcherConfig], nn.Module]
     defaults: MatcherConfig
     description: str = ""
+    takes_k_inv: bool = False  # essential-matrix pipelines take a (3, 3) K^-1
 
 
 _REGISTRY: dict[str, PipelineSpec] = {}
@@ -56,8 +67,9 @@ def build(name: str, cfg: MatcherConfig | None = None, *,
     """The pipeline ``name`` as an eval-mode module on ``device``.
 
     ``cfg`` (else the registered defaults) with flat ``overrides`` folded
-    in, as in the JAX registry. Call it with (B, 1, H, W) float32 images on
-    the same device.
+    in, as in the JAX registry. Call it with inputs on the same device:
+    (B, 1, H, W) float32 images, and a (3, 3) ``k_inv`` where the spec
+    ``takes_k_inv``.
     """
     spec = get(name)
     base = cfg or spec.defaults
@@ -65,21 +77,68 @@ def build(name: str, cfg: MatcherConfig | None = None, *,
     return spec.factory(resolved).to(torch.device(device)).eval()
 
 
-register(PipelineSpec(
-    "shi_tomasi_angle_sparse_bad_sinkhorn", ShiTomasiAngleSparseBADSinkhorn,
-    _CI.with_(block_size=5), "rotation-invariant sparse matcher (flagship)"))
-register(PipelineSpec(
-    "shi_tomasi_angle_sparse_bad_sinkhorn_extraction",
-    lambda cfg: with_match_extraction(ShiTomasiAngleSparseBADSinkhorn(cfg)),
-    _CI.with_(block_size=5),
-    "rotation-invariant sparse matcher (flagship) + mutual-NN match extraction"))
+class Standalone(nn.Module):
+    """A registry entry without weights: ``forward(*inputs)`` is
+    ``fn(*inputs, cfg)``, the inputs on the module's device (the ``akaze``
+    head: one (B, 1, H, W) image -> (scores, orientations))."""
 
-register(PipelineSpec("akaze", AKAZEDetector, _BASE,
+    def __init__(self, cfg: MatcherConfig, fn: Callable):
+        super().__init__()
+        self.cfg = cfg
+        self.fn = fn
+        # The empty buffer moves with .to() and names the device.
+        self.register_buffer("anchor", torch.empty(0), persistent=False)
+
+    @property
+    def device(self) -> torch.device:
+        return self.anchor.device
+
+    def forward(self, *inputs: torch.Tensor):
+        _check_devices(self.device, *inputs)
+        return self.fn(*inputs, self.cfg)
+
+
+def _grid_essential(p, k_inv, cfg: MatcherConfig):
+    """The standalone estimator on a sqrt(K) x sqrt(K) pixel grid."""
+    side = max(2, math.isqrt(cfg.max_keypoints))
+    return estimate_essential_matrix(p, k_inv, image_shape=(side, side))
+
+
+_MATCHERS = [
+    ("shi_tomasi_sparse_bad_sinkhorn", ShiTomasiSparseBADSinkhorn,
+     _CI.with_(block_size=3), "sparse unoriented matcher"),
+    ("shi_tomasi_angle_sparse_bad_sinkhorn", ShiTomasiAngleSparseBADSinkhorn,
+     _CI.with_(block_size=5), "rotation-invariant sparse matcher (flagship)"),
+    ("shi_tomasi_angle_sparse_bad_sinkhorn_with_filters",
+     ShiTomasiAngleSparseBADSinkhornWithFilters,
+     _CI.with_(block_size=5, ratio_threshold=2.0, dustbin_margin=0.3),
+     "flagship matcher + in-graph outlier filters"),
+    ("akaze_sparse_bad_sinkhorn", AKAZESparseBADSinkhorn, _AKAZE,
+     "AKAZE rotation-invariant sparse matcher"),
+]
+for _name, _cls, _defaults, _desc in _MATCHERS:
+    register(PipelineSpec(_name, _cls, _defaults, _desc))
+    register(PipelineSpec(
+        _name + "_extraction",
+        lambda cfg, cls=_cls: with_match_extraction(cls(cfg)), _defaults,
+        _desc + " + mutual-NN match extraction"))
+
+register(PipelineSpec(
+    "shi_tomasi_angle_sparse_bad_sinkhorn_essential_matrix",
+    ShiTomasiAngleSparseBADSinkhornEssential, _CI.with_(block_size=5),
+    "flagship matcher + in-graph essential matrix", takes_k_inv=True))
+register(PipelineSpec(
+    "akaze_sparse_bad_sinkhorn_essential_matrix",
+    AKAZESparseBADSinkhornEssential, _AKAZE,
+    "AKAZE matcher + in-graph essential matrix", takes_k_inv=True))
+
+register(PipelineSpec("akaze", lambda cfg: Standalone(cfg, akaze_detect_cfg), _BASE,
                       "AKAZE scores + orientation maps"))
 register(PipelineSpec(
-    "akaze_sparse_bad_sinkhorn", AKAZESparseBADSinkhorn, _AKAZE,
-    "AKAZE rotation-invariant sparse matcher"))
+    "sinkhorn", lambda cfg: Standalone(cfg, sinkhorn_cfg), _BASE,
+    "standalone Sinkhorn matcher on (B, K, D) descriptor tensors"))
 register(PipelineSpec(
-    "akaze_sparse_bad_sinkhorn_extraction",
-    lambda cfg: with_match_extraction(AKAZESparseBADSinkhorn(cfg)), _AKAZE,
-    "AKAZE rotation-invariant sparse matcher + mutual-NN match extraction"))
+    "essential_matrix_estimator", lambda cfg: Standalone(cfg, _grid_essential),
+    _BASE,
+    "standalone grid-variant weighted-8-point E estimator on a Sinkhorn "
+    "matrix and k_inv (feature index i maps to a sqrt(K) x sqrt(K) pixel grid)"))

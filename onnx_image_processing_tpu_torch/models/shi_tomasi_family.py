@@ -1,9 +1,12 @@
-"""The flagship rotation-invariant sparse matcher (port of
-``onnx_image_processing_tpu/models/shi_tomasi_family.py``).
+"""The Shi-Tomasi sparse matchers (port of
+``onnx_image_processing_tpu/models/shi_tomasi_family.py``): the flagship
+rotation-invariant matcher, its with-filters variant and the unoriented
+matcher.
 
-Detect -> NMS/top-k -> oriented sparse BAD -> Sinkhorn, with the two images
-stacked into one batch so detection and description run once. The module
-holds the BAD table as buffers; its inputs must be on the module's device.
+Detect -> NMS/top-k -> (oriented) sparse BAD -> Sinkhorn, with the two
+images stacked into one batch so detection and description run once. Each
+module holds the BAD table as buffers; its inputs must be on the module's
+device.
 The kernel-or-plain choice follows the tensors' device, so the JAX
 package's backend knobs (``use_pallas``, ``select_frontend``,
 ``integer_image``) have no effect here.
@@ -26,7 +29,7 @@ from ..core import MatcherConfig
 from ..kernels import detect_frontend
 from ..ops import (BADTable, angle_moments, load_bad_params, nms_select_topk,
                    select_topk_keypoints, shi_tomasi_score, sinkhorn_match,
-                   sparse_bad)
+                   sinkhorn_match_with_filters, sparse_bad)
 
 
 def _resolve_border_margin(cfg: MatcherConfig, table: BADTable) -> int:
@@ -55,15 +58,16 @@ def _select_premasked(masked_b1hw: torch.Tensor, cfg: MatcherConfig,
                                  margin, nms_radius=block_r)
 
 
-def _fused_detect_select(image: torch.Tensor, cfg: MatcherConfig, margin: int):
+def _fused_detect_select(image: torch.Tensor, cfg: MatcherConfig, margin: int,
+                         with_angle: bool):
     """Detect frontend (kernel on a CUDA tensor, plain version on a CPU
     tensor), then the premasked select. Returns keypoints, scores and the
-    (m10, m01) moment maps."""
+    (m10, m01) moment maps (None without the angle)."""
     masked, m10, m01 = detect_frontend.detect_frontend(
         image, block_size=cfg.block_size, patch_size=cfg.patch_size,
-        sigma=cfg.sigma, nms_radius=cfg.nms_radius, with_angle=True)
+        sigma=cfg.sigma, nms_radius=cfg.nms_radius, with_angle=with_angle)
     kpts, kscores = _select_premasked(masked, cfg, margin)
-    return kpts, kscores, (m10, m01)
+    return kpts, kscores, (m10, m01) if with_angle else None
 
 
 def _stack_pair(image1: torch.Tensor, image2: torch.Tensor) -> torch.Tensor:
@@ -76,16 +80,22 @@ def _split_pair(x: torch.Tensor):
 
 
 def _sparse_detect_describe(both: torch.Tensor, cfg: MatcherConfig,
-                            table: BADTable):
-    """Keypoints (B, K, 2), scores (B, K) and oriented descriptors (B, K, P)
-    of every image in the batch."""
+                            table: BADTable, with_angle: bool = True):
+    """Keypoints (B, K, 2), scores (B, K) and descriptors (B, K, P) of every
+    image in the batch; oriented by the moments with ``with_angle``.
+
+    Every stage is batch-parallel, so it serves both the stacked (2B)
+    two-image matchers and the per-image streaming frontend
+    (``models/streaming.py``) with the same values."""
     margin = _resolve_border_margin(cfg, table)
     if cfg.fused_detect:
-        kpts, kscores, orientation_mm = _fused_detect_select(both, cfg, margin)
+        kpts, kscores, orientation_mm = _fused_detect_select(both, cfg, margin,
+                                                             with_angle)
     else:
         scores = shi_tomasi_score(both, block_size=cfg.block_size)
-        orientation_mm = angle_moments(both, patch_size=cfg.patch_size,
-                                       sigma=cfg.sigma)
+        orientation_mm = (angle_moments(both, patch_size=cfg.patch_size,
+                                        sigma=cfg.sigma)
+                          if with_angle else None)
         kpts, kscores = _select_keypoints(scores, cfg, margin)
     desc = sparse_bad(both, kpts, table, orientation_mm=orientation_mm,
                       binarize=cfg.binarize, soft_binarize=cfg.soft_binarize,
@@ -93,6 +103,51 @@ def _sparse_detect_describe(both: torch.Tensor, cfg: MatcherConfig,
                       normalize_descriptors=cfg.normalize_descriptors,
                       sampling_mode=cfg.sampling_mode)
     return kpts, kscores, desc
+
+
+def _pair_features(image1: torch.Tensor, image2: torch.Tensor, frontend):
+    """Run ``frontend`` once on the stacked pair and split its
+    (keypoints, scores, descriptors) into one feature set per image."""
+    kpts, kscores, desc = frontend(_stack_pair(image1, image2))
+    (k1, k2), (s1, s2), (d1, d2) = (_split_pair(t) for t in (kpts, kscores, desc))
+    return (k1, s1, d1), (k2, s2, d2)
+
+
+def sinkhorn_cfg(desc1: torch.Tensor, desc2: torch.Tensor, cfg: MatcherConfig):
+    """:func:`sinkhorn_match` under a pipeline config."""
+    return sinkhorn_match(desc1, desc2, iterations=cfg.sinkhorn_iterations,
+                          epsilon=cfg.epsilon, unused_score=cfg.unused_score,
+                          distance_type=cfg.distance_type)
+
+
+def match_plain(feats1, feats2, cfg: MatcherConfig):
+    """Matching tail of the plain matchers: (kpts1, kpts2, P)."""
+    (kpts1, _, desc1), (kpts2, _, desc2) = feats1, feats2
+    return kpts1, kpts2, sinkhorn_cfg(desc1, desc2, cfg)
+
+
+def match_with_filters(feats1, feats2, cfg: MatcherConfig):
+    """Matching tail with the ratio / dustbin filters:
+    (kpts1, kpts2, P_filtered, valid (B, K))."""
+    (kpts1, _, desc1), (kpts2, _, desc2) = feats1, feats2
+    probs, valid = sinkhorn_match_with_filters(
+        desc1, desc2, iterations=cfg.sinkhorn_iterations, epsilon=cfg.epsilon,
+        unused_score=cfg.unused_score, distance_type=cfg.distance_type,
+        ratio_threshold=cfg.ratio_threshold, dustbin_margin=cfg.dustbin_margin)
+    return kpts1, kpts2, probs, valid
+
+
+def shi_tomasi_sparse_bad_sinkhorn_match(image1: torch.Tensor,
+                                         image2: torch.Tensor,
+                                         cfg: MatcherConfig, table: BADTable):
+    """Sparse unoriented matcher.
+
+    Returns:
+        keypoints1 (B, K, 2), keypoints2 (B, K, 2), P (B, K+1, K+1).
+    """
+    return match_plain(*_pair_features(
+        image1, image2,
+        lambda x: _sparse_detect_describe(x, cfg, table, with_angle=False)), cfg)
 
 
 def shi_tomasi_angle_sparse_bad_sinkhorn_match(image1: torch.Tensor,
@@ -104,21 +159,25 @@ def shi_tomasi_angle_sparse_bad_sinkhorn_match(image1: torch.Tensor,
     Returns:
         keypoints1 (B, K, 2), keypoints2 (B, K, 2), P (B, K+1, K+1).
     """
-    kpts, _, desc = _sparse_detect_describe(_stack_pair(image1, image2), cfg,
-                                            table)
-    kpts1, kpts2 = _split_pair(kpts)
-    desc1, desc2 = _split_pair(desc)
-    probs = sinkhorn_match(desc1, desc2, iterations=cfg.sinkhorn_iterations,
-                           epsilon=cfg.epsilon, unused_score=cfg.unused_score,
-                           distance_type=cfg.distance_type)
-    return kpts1, kpts2, probs
+    return match_plain(*_pair_features(
+        image1, image2, lambda x: _sparse_detect_describe(x, cfg, table)), cfg)
+
+
+def shi_tomasi_angle_sparse_bad_sinkhorn_match_with_filters(
+        image1: torch.Tensor, image2: torch.Tensor, cfg: MatcherConfig,
+        table: BADTable):
+    """Flagship matcher + in-graph ratio / dustbin outlier filters.
+
+    Returns:
+        keypoints1, keypoints2, P_filtered (B, K+1, K+1), valid_mask (B, K).
+    """
+    return match_with_filters(*_pair_features(
+        image1, image2, lambda x: _sparse_detect_describe(x, cfg, table)), cfg)
 
 
 def _check_ported(cfg: MatcherConfig) -> None:
     if cfg.topk_mode not in ("block", "sort"):
         raise NotImplementedError(f"topk_mode {cfg.topk_mode!r} is not ported")
-    if cfg.distance_type.lower() != "l2":
-        raise NotImplementedError(f"distance_type {cfg.distance_type!r} is not ported")
 
 
 def _check_devices(module_device: torch.device, *images: torch.Tensor) -> None:
@@ -128,9 +187,16 @@ def _check_devices(module_device: torch.device, *images: torch.Tensor) -> None:
                              f"{module_device}")
 
 
-class ShiTomasiAngleSparseBADSinkhorn(nn.Module):
-    """The flagship matcher as a module: ``forward(image1, image2)`` with
-    (B, 1, H, W) float32 images returns (keypoints1, keypoints2, P)."""
+class SparseMatcher(nn.Module):
+    """A two-image sparse matcher as a module, split at its streaming seam.
+
+    ``features(images)`` is the batch-parallel per-image frontend, returning
+    (keypoints (B, K, 2), scores (B, K), descriptors (B, K, P));
+    ``tail(feats1, feats2, *extra)`` is the matching tail;
+    ``forward(image1, image2, *extra)`` with (B, 1, H, W) float32 images runs
+    the frontend once on the stacked pair, then the tail. The module holds
+    the BAD table as buffers; its inputs must be on the module's device.
+    """
 
     def __init__(self, cfg: MatcherConfig, table: BADTable | None = None):
         super().__init__()
@@ -146,7 +212,37 @@ class ShiTomasiAngleSparseBADSinkhorn(nn.Module):
     def device(self) -> torch.device:
         return self.table.thresholds.device
 
-    def forward(self, image1: torch.Tensor, image2: torch.Tensor):
+    def features(self, images: torch.Tensor):
+        raise NotImplementedError
+
+    def tail(self, feats1, feats2):
+        return match_plain(feats1, feats2, self.cfg)
+
+    def forward(self, image1: torch.Tensor, image2: torch.Tensor, *extra):
         _check_devices(self.device, image1, image2)
-        return shi_tomasi_angle_sparse_bad_sinkhorn_match(
-            image1, image2, self.cfg, self.table)
+        return self.tail(*_pair_features(image1, image2, self.features), *extra)
+
+
+class ShiTomasiAngleSparseBADSinkhorn(SparseMatcher):
+    """The flagship matcher: ``forward(image1, image2)`` returns
+    (keypoints1, keypoints2, P)."""
+
+    def features(self, images: torch.Tensor):
+        return _sparse_detect_describe(images, self.cfg, self.table)
+
+
+class ShiTomasiSparseBADSinkhorn(SparseMatcher):
+    """The unoriented sparse matcher: ``forward(image1, image2)`` returns
+    (keypoints1, keypoints2, P)."""
+
+    def features(self, images: torch.Tensor):
+        return _sparse_detect_describe(images, self.cfg, self.table,
+                                       with_angle=False)
+
+
+class ShiTomasiAngleSparseBADSinkhornWithFilters(ShiTomasiAngleSparseBADSinkhorn):
+    """The flagship with the ratio / dustbin filters: ``forward(image1,
+    image2)`` returns (keypoints1, keypoints2, P_filtered, valid)."""
+
+    def tail(self, feats1, feats2):
+        return match_with_filters(feats1, feats2, self.cfg)

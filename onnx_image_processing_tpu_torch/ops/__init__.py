@@ -10,7 +10,9 @@ from .keypoints import (mask_scores, block_reduce, nms_maxpool,
                         nms_select_topk, select_topk_keypoints)
 from .bad import (BADParams, BADTable, box_sample_inputs, load_bad_params,
                   params_from_jax, sample_layout, sparse_bad)
-from .sinkhorn import sinkhorn_inputs, sinkhorn_match
+from .sinkhorn import (dustbin_margin_mask, probability_ratio_mask,
+                       sinkhorn_inputs, sinkhorn_match,
+                       sinkhorn_match_with_filters, sinkhorn_match_with_scores)
 from .match_extraction import extract_mutual_matches
 from .akaze import (akaze_detect, akaze_detect_parts, hessian_score,
                     nonlinear_diffusion)
@@ -22,6 +24,8 @@ __all__ = [
     "mask_scores", "block_reduce", "nms_maxpool", "nms_select_topk",
     "select_topk_keypoints", "BADParams", "BADTable", "box_sample_inputs",
     "load_bad_params", "params_from_jax", "sample_layout", "sparse_bad",
-    "sinkhorn_inputs", "sinkhorn_match", "extract_mutual_matches",
+    "sinkhorn_inputs", "sinkhorn_match", "sinkhorn_match_with_scores",
+    "sinkhorn_match_with_filters", "probability_ratio_mask",
+    "dustbin_margin_mask", "extract_mutual_matches",
     "akaze_detect", "akaze_detect_parts", "hessian_score", "nonlinear_diffusion",
 ]

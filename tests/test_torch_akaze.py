@@ -203,4 +203,4 @@ def test_akaze_modules_check_devices(gray_image):
     with pytest.raises(ValueError):
         matcher(torch.from_numpy(gray_image), torch.from_numpy(gray_image).to("meta"))
     with pytest.raises(NotImplementedError):
-        models.build("akaze_sparse_bad_sinkhorn", distance_type="l1", device="cpu")
+        models.build("akaze_sparse_bad_sinkhorn", topk_mode="approx", device="cpu")

@@ -109,7 +109,10 @@ def test_port_imports_no_jax():
             "onnx_image_processing_tpu_torch.kernels.sinkhorn_kernel, "
             "onnx_image_processing_tpu_torch.kernels.detect_frontend, "
             "onnx_image_processing_tpu_torch.kernels.akaze_ladder, "
-            "onnx_image_processing_tpu_torch.tools.profile_paths; "
+            "onnx_image_processing_tpu_torch.tools.profile_paths, "
+            "onnx_image_processing_tpu_torch.geometry, "
+            "onnx_image_processing_tpu_torch.models.streaming, "
+            "onnx_image_processing_tpu_torch.cli.visual_odometry; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')); "
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120,
@@ -138,10 +141,17 @@ def test_inputs_on_another_device_raise(gray_image_pair):
     assert moved.table.thresholds.device.type == "meta"
 
 
-def test_unported_options_raise():
+def test_unported_options_raise(gray_image_pair):
+    """Approximate top-k and the dense family stay unported; the L1 cost and
+    the essential pipelines now build and run."""
     with pytest.raises(NotImplementedError):
         models.build(NAME, topk_mode="approx", device="cpu")
-    with pytest.raises(NotImplementedError):
-        models.build(NAME, distance_type="l1", device="cpu")
-    with pytest.raises(KeyError):
-        models.build("akaze_sparse_bad_sinkhorn_essential_matrix", device="cpu")
+    with pytest.raises(KeyError, match="unknown pipeline"):
+        models.build("shi_tomasi_bad_sinkhorn", device="cpu")
+    img1, img2 = (torch.from_numpy(i) for i in gray_image_pair)
+    k1, k2, p = models.build(NAME, max_keypoints=32, distance_type="l1", epsilon=2.0,
+                             device="cpu")(img1, img2)
+    assert p.shape == (1, 33, 33) and bool(torch.isfinite(p).all())
+    ess = models.build("akaze_sparse_bad_sinkhorn_essential_matrix", device="cpu")
+    assert models.get("akaze_sparse_bad_sinkhorn_essential_matrix").takes_k_inv
+    assert ess.cfg.max_keypoints == 1024

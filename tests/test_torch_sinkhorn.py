@@ -71,5 +71,5 @@ def test_sinkhorn_rejects_bad_arguments():
         sinkhorn_match(d, d, iterations=0)
     with pytest.raises(ValueError):
         sinkhorn_match(d, d, epsilon=0.0)
-    with pytest.raises(NotImplementedError):
-        sinkhorn_match(d, d, distance_type="l1")
+    with pytest.raises(ValueError):
+        sinkhorn_match(d, d, distance_type="l3")
