@@ -8,15 +8,20 @@ Phases (any failed check raises; nothing falls back to the CPU):
 
 0. Refuse to run without CUDA; print the card (nvidia-smi name, power limit)
    and the torch / CUDA versions.
-1. Build the five CUDA kernels from ``csrc/`` with nvcc; print the seconds
-   and each kernel's registers / shared memory from ptxas.
+1. Build the CUDA kernels from ``csrc/`` with nvcc (one process per source,
+   all started together); print the seconds and each kernel's registers /
+   shared memory from ptxas.
 2. Each kernel against its plain PyTorch version on the card, on the
    paths' own inputs (480x640 pair; select on the flagship's and AKAZE's
    score maps; the sampler at the flagship's 512 keypoints with moment
    orientation and AKAZE's 1024 with its dense orientation, S=805 samples;
    Sinkhorn at 513x513 and 1025x1025; the detect frontend at block 5 /
    NMS 5 with and without moments; the AKAZE ladder at its defaults): max
-   error and median ms of both.
+   error and median ms of both. The sampler's stage ablation at the
+   flagship's inputs (full = the sampler kernel = its plain version, bit for
+   bit; no box sums = its plain definition, bit for bit; no load finite; no
+   store leaves the buffer untouched), and the sampler in bilinear mode at
+   the dense matcher's inputs (1024 keypoints, margin 0).
 3. The flagship slice through ``models.build(..., device="cuda")``: launch
    counts of one run, agreement with the same slice on CPU copies, a
    self-match and a known-shift check, and the median ms per pair.
@@ -37,9 +42,24 @@ Phases (any failed check raises; nothing falls back to the CPU):
    launch counts per frame, streaming vs two-image on the card, E on the
    card vs the CPU, E finite and rank 2, the median Sampson error of the
    valid matches; ms per frame for extract and match, host syncs per frame.
+8. The dense family at 480x640: the dense matcher
+   ``shi_tomasi_bad_sinkhorn`` at its registry defaults (1024 keypoints, 512
+   pairs sampled bilinearly, a 1025x1025 Sinkhorn) as phase 3, and its
+   streaming split against the two-image call; the ``bad`` and
+   ``shi_tomasi_bad`` heads (static shifts) card vs CPU; the oriented dense
+   map (P=256, every pixel a keypoint) by the sampler kernel against the
+   gather route, both on the card, with its ms and peak memory; the
+   ``shi_tomasi_angle_sparse_bad`` head with and without ``fused_detect``,
+   card vs CPU.
+9. The device functions of the three image CLIs on the card (counts,
+   shapes, the 7-px shift), then the sampler's stage ablation
+   (``tools.ablate_sampler``), its JSON lines printed.
 
-The last two lines are a JSON object of per-kernel results and
-``{"ok": true, "device": {...}}``.
+The last two lines are a JSON object of per-kernel results (each with its
+launches on the paths, launches per call of its path, error against its
+plain version, ms, plain ms, the card's bound for the same work and what
+bounds it, and ``library_ms``: null, no single PyTorch call computes any of
+them) and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -59,6 +79,9 @@ FLAGSHIP = "shi_tomasi_angle_sparse_bad_sinkhorn"
 FILTERS = FLAGSHIP + "_with_filters"
 UNORIENTED = "shi_tomasi_sparse_bad_sinkhorn"
 AKAZE = "akaze_sparse_bad_sinkhorn"
+DENSE = "shi_tomasi_bad_sinkhorn"
+HEAD = "shi_tomasi_angle_sparse_bad"
+ABLATE = "sparse_sampler_ablate"   # counted only by the ablation's own run
 
 # Tolerances on the card, kernel vs plain version.
 SAMPLER_ATOL = 1e-3     # box means of [0, 255] pixels
@@ -87,6 +110,15 @@ SAMPSON_PX = 2.0        # median Sampson error bound (SAMPSON_PX / fx)^2
 # 4364.585 x (2 / fx)^2 (the port on the CPU 4351.251 x). The AKAZE path is
 # held to 1.5x JAX's value; the RANSAC flagship to the bound itself.
 JAX_AKAZE_SAMPSON_RATIO = 4364.585
+# Phase 8, the dense family.
+DENSE_ATOL = 1e-4       # static-shift dense maps, card vs CPU
+ORIENTED_ATOL = 2e-3    # oriented map, sampler kernel vs gather (tests/test_bad_parity.py:183)
+HEAD_DESC_FRAC = 0.01   # head: share of common keypoints whose descriptors differ past DESC_ATOL
+SCORE_RTOL = 1e-5       # Shi-Tomasi score maps, card vs CPU, relative to the map's max
+CLI_COUNT_RTOL = 0.02   # CLI keypoint counts, card vs CPU
+# Peak rates of one H100 SXM: HBM3 bandwidth and dense FP32 throughput.
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
 
 
 def check(ok: bool, what: str) -> None:
@@ -157,37 +189,24 @@ def vo_sequence(n_frames: int = VO_FRAMES, step: float = VO_STEP, seed: int = 2)
     return frames
 
 
-def cuda_ms(fn, warmup: int = 3, reps: int = 25) -> float:
-    """Median device time of one call, by CUDA events, after warm-up."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
+def common_rows(a, b):
+    """Rows of the keypoint sets ``a`` and ``b`` ((K, 2) each) with equal
+    coordinates, as index arrays into each, and the symmetric set difference."""
+    inv_a = {tuple(v): i for i, v in enumerate(a.tolist())}
+    inv_b = {tuple(v): i for i, v in enumerate(b.tolist())}
+    shared = sorted(set(inv_a) & set(inv_b))
+    return ([inv_a[v] for v in shared], [inv_b[v] for v in shared],
+            len(set(inv_a) ^ set(inv_b)))
 
 
 def p_common_diff(k1a, k2a, pa, k1b, k2b, pb) -> tuple[float, int]:
     """Max |P_a - P_b| over the keypoints both runs selected (plus the
     dustbin), matched by coordinates; returns it and the swap count."""
-    idx = []
-    swaps = 0
-    for a, b in ((k1a, k1b), (k2a, k2b)):
-        inv_a = {tuple(v): i for i, v in enumerate(a.tolist())}
-        inv_b = {tuple(v): i for i, v in enumerate(b.tolist())}
-        shared = sorted(set(inv_a) & set(inv_b))
-        swaps = max(swaps, len(set(inv_a) ^ set(inv_b)))
-        idx.append((np.array([inv_a[v] for v in shared] + [len(a)]),
-                    np.array([inv_b[v] for v in shared] + [len(b)])))
-    (ia1, ib1), (ia2, ib2) = idx
+    ia1, ib1, s1 = common_rows(k1a, k1b)
+    ia2, ib2, s2 = common_rows(k2a, k2b)
+    # The dustbin row and column pair up too.
+    ia1, ib1, ia2, ib2 = ia1 + [len(k1a)], ib1 + [len(k1b)], ia2 + [len(k2a)], ib2 + [len(k2b)]
+    swaps = max(s1, s2)
     diff = np.abs(pa[np.ix_(ia1, ia2)] - pb[np.ix_(ib1, ib2)])
     return float(diff.max()), swaps
 
@@ -216,12 +235,7 @@ def run_path(label, name, overrides, g_pair, c_pair, expect_zero=(), self_min=0)
     out = extraction(*g_pair)
     torch.cuda.synchronize()
     counts = launch_counts()
-    print(f"[{label}] launches in one run:", json.dumps(counts, sort_keys=True))
-    for k, c in counts.items():
-        if k in expect_zero:
-            check(c == 0, f"[{label}] kernel {k} launched {c} times, expected none")
-        else:
-            check(c > 0, f"[{label}] kernel {k} was not launched by the path")
+    check_counts(label, counts, set(counts) - {*expect_zero, ABLATE})
     mk1, mk2, ms, mv, *_ = (t.cpu().numpy() for t in out)
     check(mk1.shape == (1, MAX_MATCHES, 2) and ms.shape == (1, MAX_MATCHES),
           f"[{label}] extraction output shapes {mk1.shape} {ms.shape}")
@@ -273,6 +287,174 @@ def run_path(label, name, overrides, g_pair, c_pair, expect_zero=(), self_min=0)
     print(f"[{label}] {np.median(times):.3f} ms per pair (median of {len(times)} calls, "
           f"host clock around synchronized calls)")
     return counts, matcher, (gout, cout)
+
+
+def check_counts(label, counts, expect_positive) -> None:
+    """Every kernel in ``expect_positive`` launched, every other one not."""
+    print(f"[{label}] launches:", json.dumps(counts, sort_keys=True))
+    for k, c in counts.items():
+        if k in expect_positive:
+            check(c > 0, f"[{label}] kernel {k} was not launched")
+        else:
+            check(c == 0, f"[{label}] kernel {k} launched {c} times, expected none")
+
+
+def synced_ms(fn) -> tuple[float, object]:
+    """Host-clock ms of one call between two synchronizes, and its result."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3, out
+
+
+def run_dense(g_pair, c_pair, paths: dict) -> None:
+    """Phase 8: the dense matcher as a path, its streaming split, the dense
+    heads (static shifts) card vs CPU, the oriented dense map (sampler
+    kernel vs gather, both on the card) and the single-image sparse head
+    with and without the detect frontend. Adds each counted run to
+    ``paths``."""
+    import torch
+    from onnx_image_processing_tpu_torch import models, ops
+    from onnx_image_processing_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    dev = g_pair[0].device
+    g1, c1 = g_pair[0], c_pair[0]
+    paths["dense"] = run_path("dense", DENSE, {}, g_pair, c_pair,
+                              expect_zero=("detect_frontend", "akaze_ladder"))[0]
+
+    extract, match = models.build_streaming(DENSE + "_extraction", device=dev,
+                                            max_matches=MAX_MATCHES)
+    s_out = match(extract(g_pair[0]), extract(g_pair[1]))
+    t_out = models.build(DENSE + "_extraction", device=dev, max_matches=MAX_MATCHES)(*g_pair)
+    same = all(torch.equal(a, b) for a, b in zip(s_out, t_out))
+    print(f"[dense] streaming vs two-image on the card: bit-identical {same}")
+    check(same, "[dense] the streaming split differs from the two-image call")
+
+    for name in ("bad", "shi_tomasi_bad"):
+        head = models.build(name, device=dev)
+        reset_launch_counts()
+        ms, g = synced_ms(lambda: head(g1))
+        counts = launch_counts()
+        c = models.build(name, device="cpu")(c1)
+        # bad returns the map; shi_tomasi_bad the scores and the map.
+        (gs, gm), (cs, cm) = ((None, g), (None, c)) if name == "bad" else (g, c)
+        d_err = (gm.cpu() - cm).abs().max().item()
+        s_err = 0.0 if cs is None else ((gs.cpu() - cs).abs().max() / cs.abs().max()).item()
+        print(f"[{name}] card vs CPU, {tuple(cm.shape)}: "
+              f"map max abs diff {d_err:.3e} (max {DENSE_ATOL}), score max diff relative "
+              f"to the map's max {s_err:.3e} (max {SCORE_RTOL}); {ms:.3f} ms on the card "
+              f"(one call); launches {json.dumps(counts, sort_keys=True)}")
+        check(d_err <= DENSE_ATOL, f"[{name}] dense map differs by {d_err}")
+        check(s_err <= SCORE_RTOL, f"[{name}] scores differ by {s_err} of their max")
+
+    table = models.build("bad", device=dev).table
+    theta = ops.angle_estimation(g1)
+    routes = {}
+    for route in ("tiled", "gather"):
+        ops.dense_bad(g1, table, orientation=theta, oriented_route=route)   # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        reset_launch_counts()
+        ms, out = synced_ms(lambda: ops.dense_bad(g1, table, orientation=theta,
+                                                  oriented_route=route))
+        counts = launch_counts()
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+        routes[route] = out
+        print(f"[oriented map] {route}: {tuple(out.shape)}, {ms:.3f} ms (one synchronized "
+              f"call after a warm-up), peak memory {peak:.1f} MiB above the inputs, "
+              f"sampler launches {counts['sparse_sampler']}")
+        if route == "tiled":
+            check_counts("oriented map", counts, ("sparse_sampler",))
+            paths["oriented map"] = counts
+    err = (routes["tiled"] - routes["gather"]).abs().max().item()
+    print(f"[oriented map] sampler kernel vs gather on the card: max abs diff {err:.3e} "
+          f"(max {ORIENTED_ATOL})")
+    check(err <= ORIENTED_ATOL, f"[oriented map] tiled vs gather differ by {err}")
+
+    for fused in (False, True):
+        label = f"{HEAD}{' fused' if fused else ''}"
+        head = models.build(HEAD, device=dev, fused_detect=fused)
+        reset_launch_counts()
+        kg, sg, dg = (t.cpu().numpy() for t in head(g1))
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        check_counts(label, counts, ("sparse_sampler",
+                                     "detect_frontend" if fused else "select_frontend"))
+        paths[label] = counts
+        kc, sc, dc = (t.numpy() for t in models.build(HEAD, device="cpu",
+                                                       fused_detect=fused)(c1))
+        ig, ic, swaps = common_rows(kg[0], kc[0])
+        off = (np.abs(dg[0][ig] - dc[0][ic]).max(-1) > DESC_ATOL).mean()
+        d_err = float(np.abs(dg[0][ig] - dc[0][ic]).max())
+        print(f"[{label}] card vs CPU: keypoint set difference {swaps} (max {KPT_SWAPS}); "
+              f"descriptors on {len(ig)} common keypoints: max abs diff {d_err:.3e}, share "
+              f"past {DESC_ATOL} {off:.4f} (max {HEAD_DESC_FRAC})")
+        check(kg.shape == (1, head.cfg.max_keypoints, 2) and bool(np.isfinite(dg).all()),
+              f"[{label}] output shapes or values")
+        check(swaps <= KPT_SWAPS and off <= HEAD_DESC_FRAC, f"[{label}] card vs CPU")
+
+
+def run_clis(g_pair, c_pair) -> None:
+    """Phase 9, first half: the device functions of the three image CLIs on
+    the card (image I/O and drawing need PIL, which is not needed here),
+    with the CLIs' host post-processing."""
+    from onnx_image_processing_tpu_torch import models
+    from onnx_image_processing_tpu_torch.cli import (feature_detection, image_matching,
+                                                     image_matching_extraction)
+    from onnx_image_processing_tpu_torch.utils import extract_matches, select_keypoints
+
+    dev = g_pair[0].device
+    img1 = c_pair[0].numpy()
+    for name in ("shi_tomasi", "shi_tomasi_angle"):
+        sg = feature_detection.detect(models.build(name, device=dev), img1)
+        sc = feature_detection.detect(models.build(name, device="cpu"), img1)
+        kw = dict(threshold=0.01, max_keypoints=1000, nms_radius=3, subpixel=True)
+        ng, nc = len(select_keypoints(sg, **kw)), len(select_keypoints(sc, **kw))
+        print(f"[cli feature_detection {name}] score map {sg.shape}, keypoints: card {ng}, "
+              f"CPU {nc}")
+        check(sg.shape == (1, 1, H, W) and bool(np.isfinite(sg).all()),
+              f"[cli feature_detection {name}] score map")
+        check(ng > 0 and abs(ng - nc) <= CLI_COUNT_RTOL * nc,
+              f"[cli feature_detection {name}] keypoint counts {ng} vs {nc}")
+
+    t1, t2 = texture_pair()
+    k1, k2, p = image_matching.match(models.build(FLAGSHIP, device=dev,
+                                                  max_keypoints=MAX_KEYPOINTS), t1, t2)
+    mk1, mk2, _ = extract_matches(p, k1, k2, threshold=0.1, max_matches=100)
+    check(p.shape == (1, MAX_KEYPOINTS + 1, MAX_KEYPOINTS + 1), "[cli image_matching] P shape")
+    em1, em2, _ = image_matching_extraction.match(
+        models.build(FLAGSHIP + "_extraction", device=dev, max_keypoints=MAX_KEYPOINTS), t1, t2)
+    for label, a, b in (("image_matching", mk1, mk2),
+                        ("image_matching_extraction", em1, em2)):
+        d = b - a
+        dx, dy = (float(np.median(d[:, 1])), float(np.median(d[:, 0]))) if len(d) else (0, 0)
+        print(f"[cli {label}] {len(a)} matches on the texture rolled {SHIFT_X} px: "
+              f"median dx {dx}, dy {dy}")
+        check(len(a) > 0 and abs(dx - SHIFT_X) <= 1 and abs(dy) <= 1,
+              f"[cli {label}] shift not recovered")
+
+
+def bound(nbytes: float, ops: float) -> dict:
+    """The least time the card could take: the larger of the bytes over the
+    memory rate and the operations over the float32 rate."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    t = max(t_bytes, t_ops)
+    return {"bound_ms": t * 1e3, "bound_us": t * 1e6,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def sampler_ops(b, k, radius) -> float:
+    """Adds and divides of the direct box sums, nearest mode: (2r+1)^2 per
+    sample (the (2r+1)^2 - 1 adds and one divide)."""
+    return float(b * k * ((2 * radius.long() + 1) ** 2).sum().item())
 
 
 def sampson_median(e, mk1, mk2, k_inv) -> float:
@@ -335,6 +517,7 @@ def run_vo(label, name, overrides, frames_g, frames_c, k_inv, expect_zero, samps
         ref = feats
     print(f"[{label}] launches per frame:", json.dumps(per_frame[0], sort_keys=True),
           f"(the same in all {len(per_frame)} frames: {all(c == per_frame[0] for c in per_frame)})")
+    expect_zero = (*expect_zero, ABLATE)
     for counts in per_frame:
         for k, c in counts.items():
             if k in expect_zero:
@@ -527,8 +710,10 @@ def main() -> None:
 
     from onnx_image_processing_tpu_torch import models, ops
     from onnx_image_processing_tpu_torch.kernels import (
-        _build, akaze_ladder, detect_frontend, select_frontend, sinkhorn_kernel,
-        sparse_sampler)
+        _build, akaze_ladder, detect_frontend, launch_counts, reset_launch_counts,
+        select_frontend, sinkhorn_kernel, sparse_sampler)
+    from onnx_image_processing_tpu_torch.tools import ablate_sampler
+    from onnx_image_processing_tpu_torch.tools.ablate_sampler import cuda_ms
     from onnx_image_processing_tpu_torch.models.akaze_family import akaze_detect_cfg
     from onnx_image_processing_tpu_torch.models.shi_tomasi_family import _sparse_detect_describe
 
@@ -572,10 +757,15 @@ def main() -> None:
               f"select_frontend not bit-identical on the {name}")
         select_err = max(select_err, (bm_k - bm_p).abs().max().item())
         print(f"select_frontend {name} {tuple(bm_k.shape)}: bit-identical")
+    bm_k, bi_k = select_frontend.nms_block_reduce(scores, *sel_args)
     results["select_frontend"] = {
         "max_abs_err": select_err,
         "ms": cuda_ms(lambda: select_frontend.nms_block_reduce(scores, *sel_args)),
         "plain_ms": cuda_ms(lambda: select_frontend.nms_block_reduce_plain(scores, *sel_args)),
+        # Separable window max (2r+1 compares per axis), then the NMS,
+        # threshold and border tests and the block max: ~4 more per pixel.
+        "bound": bound(nbytes(scores, bm_k, bi_k),
+                       scores.numel() * (2 * (2 * cfg.nms_radius + 1) + 4)),
     }
 
     kpts, _ = ops.nms_select_topk(scores, cfg.max_keypoints, cfg.score_threshold,
@@ -606,7 +796,44 @@ def main() -> None:
         "max_abs_err": sampler_err,
         "ms": cuda_ms(lambda: sparse_sampler.box_sample(*smp_args)),
         "plain_ms": cuda_ms(lambda: sparse_sampler.box_sample_plain(*smp_args)),
+        "bound": bound(nbytes(*smp_args[:6], smp_args[3]),
+                       sampler_ops(*smp_args[3].shape[:2], smp_args[5])),
     }
+
+    # The stage ablation: one templated kernel, so the full variant is the
+    # sampler kernel itself.
+    full = sparse_sampler.box_sample_ablated(*smp_args)
+    check(torch.equal(full, sparse_sampler.box_sample(*smp_args)),
+          "ablation: the full variant differs from the sampler kernel")
+    check(torch.equal(full, sparse_sampler.box_sample_plain(*smp_args)),
+          "ablation: the full variant differs from the plain version")
+    centre_groups = tuple((0, lo, hi) for (_, lo, hi) in smp_args[6])
+    no_box = sparse_sampler.box_sample_ablated(*smp_args, skip=("boxsum",))
+    check(torch.equal(no_box, sparse_sampler.box_sample_plain(
+        *smp_args[:6], centre_groups, *smp_args[7:])),
+          "ablation: 'boxsum' skipped differs from its plain definition (radius 0)")
+    no_load = sparse_sampler.box_sample_ablated(*smp_args, skip=("load",))
+    check(bool(torch.isfinite(no_load).all()), "ablation: 'load' skipped gives non-finite samples")
+    kept = torch.full_like(full, -7.0)
+    sparse_sampler.box_sample_ablated(*smp_args, skip=("store",), out=kept)
+    check(bool((kept == -7.0).all()), "ablation: 'store' skipped wrote to the output")
+    print(f"sparse_sampler_ablate flagship {tuple(full.shape)}: full = kernel = plain bit for "
+          f"bit; no box sums = plain at radius 0 bit for bit; no load finite; no store "
+          f"left the buffer untouched")
+
+    dcfg = models.get(DENSE).defaults
+    d_scores = ops.shi_tomasi_score(both, dcfg.block_size)[:, 0].contiguous()
+    d_kpts, _ = ops.nms_select_topk(d_scores, dcfg.max_keypoints, dcfg.score_threshold, 0,
+                                    nms_radius=dcfg.nms_radius)
+    d_args = (*ops.box_sample_inputs(both, d_kpts, table), table.sample_radius,
+              table.groups, 56, table.max_radius)
+    err = (sparse_sampler.box_sample(*d_args, bilinear=True)
+           - sparse_sampler.box_sample_plain(*d_args, bilinear=True)).abs().max().item()
+    print(f"sparse_sampler dense matcher bilinear {tuple(d_args[3].shape)}: max abs err "
+          f"{err:.3e}; {cuda_ms(lambda: sparse_sampler.box_sample(*d_args, bilinear=True)):.4f} ms, "
+          f"plain {cuda_ms(lambda: sparse_sampler.box_sample_plain(*d_args, bilinear=True)):.4f} ms")
+    check(err <= SAMPLER_ATOL, f"sparse_sampler dense bilinear error {err} > {SAMPLER_ATOL}")
+    results["sparse_sampler"]["max_abs_err"] = max(sampler_err, err)
 
     desc = ops.sparse_bad(both, kpts, table, orientation_mm=mm, binarize=cfg.binarize,
                           soft_binarize=cfg.soft_binarize, temperature=cfg.temperature)
@@ -635,10 +862,15 @@ def main() -> None:
         else:
             print(f"sinkhorn {label}: {cuda_ms(lambda: sinkhorn_kernel.sinkhorn_core(ls, lmu, lnu, iters)):.4f} ms, "
                   f"plain {cuda_ms(lambda: sinkhorn_kernel.sinkhorn_core_plain(ls, lmu, lnu, iters)):.4f} ms")
+    sk_out = sinkhorn_kernel.sinkhorn_core(*sk_args)
     results["sinkhorn"] = {
         "max_abs_err": sinkhorn_err,
         "ms": cuda_ms(lambda: sinkhorn_kernel.sinkhorn_core(*sk_args)),
         "plain_ms": cuda_ms(lambda: sinkhorn_kernel.sinkhorn_core_plain(*sk_args)),
+        # Each sweep: max, subtract, exp, add per entry (a row LSE, then a
+        # column LSE), 20 iterations; then one add and exp per entry.
+        "bound": bound(nbytes(*sk_args[:3], sk_out),
+                       sk_out.numel() * (sk_args[3] * 2 * 4 + 2)),
     }
 
     df_args = (cfg.block_size, cfg.patch_size, cfg.sigma, cfg.nms_radius)
@@ -658,10 +890,16 @@ def main() -> None:
         print(f"detect_frontend {mode}: "
               f"{cuda_ms(lambda: detect_frontend.detect_frontend(both, *df_args, with_angle=with_angle)):.4f} ms, plain "
               f"{cuda_ms(lambda: detect_frontend.detect_frontend_plain(both, *df_args, with_angle=with_angle)):.4f} ms")
+    bs, ps_, r = cfg.block_size, cfg.patch_size, cfg.nms_radius
     results["detect_frontend"] = {
         "max_abs_err": detect_err,
         "ms": cuda_ms(lambda: detect_frontend.detect_frontend(both, *df_args)),
         "plain_ms": cuda_ms(lambda: detect_frontend.detect_frontend_plain(both, *df_args)),
+        # Per pixel: two separable Sobel derivatives (24), three products,
+        # three separable box sums (6 b), the score (8), the NMS window
+        # (2 (2r+1) + 2) and two separable moments (8 p).
+        "bound": bound(16 * both.numel(), both.numel() * (
+            24 + 3 + 6 * bs + 8 + 2 * (2 * r + 1) + 2 + 8 * ps_)),
     }
 
     a = akaze.cfg.akaze
@@ -683,6 +921,11 @@ def main() -> None:
         "max_abs_err": max(errs),
         "ms": cuda_ms(lambda: akaze_ladder.akaze_ladder(both_hw, *lad_args)),
         "plain_ms": cuda_ms(lambda: akaze_ladder.akaze_ladder_plain(both_hw, *lad_args)),
+        # Per pixel and scale: each FED step ~25 (gradients, conductance,
+        # four fluxes, update), the Hessian score 13, its NMS window
+        # 2 nms_size, the two separable moments 8 p.
+        "bound": bound(4 * both_hw.numel() * 4, both_hw.numel() * a.num_scales * (
+            25 * a.diffusion_iterations + 13 + 2 * a.nms_size + 8 * a.orientation_patch_size)),
     }
 
     # ---- phase 3: the slice end to end ------------------------------------
@@ -701,11 +944,8 @@ def main() -> None:
     kp, _, dp_ = _sparse_detect_describe(both, fused.cfg, fused.table)
     kx, kp, dx_, dp_ = (t.cpu().numpy() for t in (kx, kp, dx_, dp_))
     for b in range(2):
-        ix = {tuple(v): i for i, v in enumerate(kx[b].tolist())}
-        ip = {tuple(v): i for i, v in enumerate(kp[b].tolist())}
-        common = sorted(set(ix) & set(ip))
-        swaps = len(set(ix) ^ set(ip))
-        d_err = float(np.abs(dp_[b, [ip[v] for v in common]] - dx_[b, [ix[v] for v in common]]).max())
+        ix, ip, swaps = common_rows(kx[b], kp[b])
+        d_err = float(np.abs(dp_[b, ip] - dx_[b, ix]).max())
         print(f"[fused] vs unfused on the card, image {b}: keypoint set difference {swaps} "
               f"(max {KPT_SWAPS}), descriptor max abs diff on common keypoints {d_err:.3e} "
               f"(max {DESC_ATOL})")
@@ -721,11 +961,9 @@ def main() -> None:
     counts, _, (gout, cout) = run_path("filters", FILTERS, flag_kw, (g1, g2), (c1, c2),
                                        expect_zero=unfused_zero, self_min=FILTERS_SELF_MIN)
     paths["filters"] = counts
-    ig = {tuple(v): i for i, v in enumerate(gout[0][0].tolist())}
-    ic = {tuple(v): i for i, v in enumerate(cout[0][0].tolist())}
-    common = sorted(set(ig) & set(ic))
-    flips = sum(int(gout[3][0][ig[v]] != cout[3][0][ic[v]]) for v in common)
-    print(f"[filters] filter masks GPU vs CPU: {flips} of {len(common)} common keypoints differ "
+    ig, ic, _ = common_rows(gout[0][0], cout[0][0])
+    flips = int((gout[3][0][ig] != cout[3][0][ic]).sum())
+    print(f"[filters] filter masks GPU vs CPU: {flips} of {len(ig)} common keypoints differ "
           f"({int(gout[3].sum())} vs {int(cout[3].sum())} rows pass)")
     check(flips == 0, "[filters] filter masks differ between the card and the CPU")
     paths["unoriented"] = run_path("unoriented", UNORIENTED, flag_kw, (g1, g2), (c1, c2),
@@ -737,33 +975,66 @@ def main() -> None:
     frames_c = [torch.from_numpy(f) for f in frames]
     fx = 0.8 * W  # the VO CLI's default intrinsics
     k_inv = np.linalg.inv(np.array([[fx, 0, W / 2], [0, fx, H / 2], [0, 0, 1]])).astype(np.float32)
-    bound = (SAMPSON_PX / fx) ** 2
+    sampson_bound = (SAMPSON_PX / fx) ** 2
     print(f"[VO] {len(frames)} frames {H}x{W}, x-motion {VO_STEP} px per frame times an "
-          f"inverse depth in [0.6, 1.4]; fx {fx}; Sampson bound (2 px / fx)^2 = {bound:.4e}")
+          f"inverse depth in [0.6, 1.4]; fx {fx}; Sampson bound (2 px / fx)^2 = "
+          f"{sampson_bound:.4e}")
     paths["VO AKAZE"] = run_vo("VO AKAZE", AKAZE + "_essential_matrix", {}, frames_g, frames_c,
                                k_inv, ("detect_frontend",),
-                               1.5 * JAX_AKAZE_SAMPSON_RATIO * bound)
+                               1.5 * JAX_AKAZE_SAMPSON_RATIO * sampson_bound)
     paths["VO RANSAC"] = run_vo(
         "VO RANSAC", FLAGSHIP + "_essential_matrix",
         dict(essential_ransac_hypotheses=256, essential_irls_iters=2), frames_g, frames_c,
-        k_inv, unfused_zero, bound)
+        k_inv, unfused_zero, sampson_bound)
 
-    sources = {"select_frontend": ("select_frontend.cu", "select_frontend.py:329"),
-               "sparse_sampler": ("sparse_sampler.cu", "sparse_sampler.py:411"),
-               "sinkhorn": ("sinkhorn.cu", "sinkhorn_kernel.py:111"),
-               "detect_frontend": ("detect_frontend.cu", "detect_frontend.py:300"),
-               "akaze_ladder": ("akaze_ladder.cu", "akaze_ladder.py:161")}
-    # Launches: the sum over the path runs (each read right after its run).
+    # ---- phase 8: the dense family ---------------------------------------------
+    run_dense((g1, g2), (c1, c2), paths)
+
+    # ---- phase 9: the image CLIs' device functions, the sampler ablation -----
+    run_clis((g1, g2), (c1, c2))
+    abl_args = ablate_sampler.ablation_inputs(dev)
+    reset_launch_counts()
+    lines = ablate_sampler.run(dev)
+    torch.cuda.synchronize()
+    paths["ablation"] = launch_counts()
+    check_counts("ablation", paths["ablation"], (ABLATE,))
+    for line in lines:
+        print(json.dumps(line))
+    full = sparse_sampler.box_sample_ablated(*abl_args)
+    check(torch.equal(full, sparse_sampler.box_sample(*abl_args)),
+          "ablation inputs: the full variant differs from the sampler kernel")
+    reset_launch_counts()
+    sparse_sampler.box_sample_ablated(*abl_args)
+    ablate_per_call = launch_counts()[ABLATE]
+    results[ABLATE] = {
+        "max_abs_err": (full - sparse_sampler.box_sample_plain(*abl_args)).abs().max().item(),
+        "ms": lines[0]["ms"],
+        "plain_ms": cuda_ms(lambda: sparse_sampler.box_sample_plain(*abl_args)),
+        "bound": bound(nbytes(*abl_args[:6], abl_args[3]),
+                       sampler_ops(*abl_args[3].shape[:2], abl_args[5])),
+    }
+
+    sources = {"select_frontend": ("select_frontend.cu", "kernels/select_frontend.py:329", "flagship"),
+               "sparse_sampler": ("sparse_sampler.cu", "kernels/sparse_sampler.py:411", "flagship"),
+               "sinkhorn": ("sinkhorn.cu", "kernels/sinkhorn_kernel.py:111", "flagship"),
+               "detect_frontend": ("detect_frontend.cu", "kernels/detect_frontend.py:300", "fused"),
+               "akaze_ladder": ("akaze_ladder.cu", "kernels/akaze_ladder.py:161", "AKAZE"),
+               ABLATE: ("sparse_sampler.cu", None, "ablation")}
+    # Launches: the sum over the path runs (each read right after its run);
+    # per call: the one counted call of the kernel's own path.
     launches = {k: sum(c[k] for c in paths.values()) for k in sources}
     kernels = []
-    for name, (cu, tpu) in sources.items():
+    for name, (cu, tpu, path) in sources.items():
         r = results[name]
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"onnx_image_processing_tpu_torch/csrc/{cu}",
-            "replaces": f"onnx_image_processing_tpu/kernels/{tpu}",
-            "launches": launches[name], "max_abs_err": r["max_abs_err"],
-            "ms": r["ms"], "plain_ms": r["plain_ms"]})
+            "replaces": (f"onnx_image_processing_tpu/{tpu}" if tpu
+                         else "benchmarks/ablate_sampler.py:167"),
+            "launches": launches[name],
+            "launches_per_call": ablate_per_call if name == ABLATE else paths[path][name],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            **r["bound"], "library_ms": None})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,12 +7,11 @@ Port of ``onnx_image_processing_tpu/cli/visual_odometry.py``: the same flags
 (``--device {cuda,cpu}`` in place of ``--platform``), frame sources and
 gating state machine (insufficient-match skip, stationary-camera gating by
 RMS flow with reference-frame aging, inlier-ratio pose rejection). The
-matchers run in the port; the host side is the JAX package's own jax-free
-code: ``onnx_image_processing_tpu.vo`` for the pose (OpenCV RANSAC, or
-recoverPose on the in-graph E) and ``cli.common.load_image_from_array``.
-Frames, the pose step, ``--display`` and ``--plot`` need OpenCV, PIL and
-matplotlib; they are imported where used, so importing this module needs
-none of them.
+matchers run on the device; the host side is the port's own ``vo`` (the
+pose: OpenCV RANSAC, or recoverPose on the in-graph E), ``utils`` and
+``cli.common``. Frames, the pose step, ``--display`` and ``--plot`` need
+OpenCV, PIL and matplotlib; they are imported where used, so importing this
+module needs none of them.
 """
 
 from __future__ import annotations
@@ -25,11 +24,10 @@ import time
 import numpy as np
 import torch
 
-from onnx_image_processing_tpu.vo import (CameraIntrinsics, Trajectory,
-                                          create_camera, estimate_pose_ransac,
-                                          recover_pose)
-
 from .. import models
+from ..vo import (CameraIntrinsics, Trajectory, create_camera, estimate_pose_ransac,
+                  recover_pose)
+from .common import add_device_arg, load_image_from_array, select_device
 
 
 class VideoReader:
@@ -135,8 +133,6 @@ def run_visual_odometry(
     detect/describe once. Each frame makes one device-to-host copy of the
     extraction outputs (and E).
     """
-    from onnx_image_processing_tpu.cli.common import load_image_from_array
-
     def upload(image: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(image).to(device)
 
@@ -250,7 +246,7 @@ def run_visual_odometry(
         if display:
             import cv2
 
-            from onnx_image_processing_tpu.utils import draw_vo_overlay
+            from ..utils import draw_vo_overlay
 
             info = draw_vo_overlay(
                 curr_frame, trajectory, frame_count, n_matches, n_inliers,
@@ -277,15 +273,6 @@ def run_visual_odometry(
         print(f"Processing time: {elapsed:.2f} s "
               f"({processed / max(elapsed, 1e-9):.1f} fps)")
     return trajectory
-
-
-def select_device(name: str) -> torch.device:
-    """The device ``--device`` names; CUDA without a card raises (there is
-    no silent switch to the CPU)."""
-    if name == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda: torch.cuda.is_available() is False; "
-                           "pass --device cpu to run on the CPU")
-    return torch.device(name)
 
 
 def build_vo_matcher(name: str, cfg, streaming: bool, device):
@@ -354,8 +341,7 @@ def parse_args(argv=None):
                    help="3D trajectory plot instead of 2D")
     p.add_argument("--display", action="store_true")
     p.add_argument("--quiet", "-q", action="store_true")
-    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
-                   help="device the matcher runs on")
+    add_device_arg(p)
     args = p.parse_args(argv)
     # Fold the reference-style source aliases into the single source field.
     if args.video is not None:

@@ -1,5 +1,5 @@
-"""Core contracts of the port: the JAX package's config dataclass (its
-module imports no JAX) and the float32 rule for work on the card.
+"""Core contracts of the port: the pipeline config (its own copy of the JAX
+package's, ``config.py``) and the float32 rule for work on the card.
 
 Data contract, as in the JAX package: images are (B, 1, H, W) float32 in
 [0, 255]; keypoints (B, K, 2) float32 (y, x) with (-1, -1) padding; the
@@ -12,9 +12,10 @@ import contextlib
 
 import torch
 
-from onnx_image_processing_tpu.core.config import MatcherConfig
+from .config import AKAZEConfig, CameraConfig, DoGConfig, FASTConfig, MatcherConfig
 
-__all__ = ["MatcherConfig", "full_fp32"]
+__all__ = ["AKAZEConfig", "CameraConfig", "DoGConfig", "FASTConfig", "MatcherConfig",
+           "full_fp32"]
 
 
 @contextlib.contextmanager

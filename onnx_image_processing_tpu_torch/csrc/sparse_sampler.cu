@@ -18,17 +18,36 @@
 // What bounds it on this card: at the flagship shape (2 x 512 keypoints,
 // S = 805, radii 1..7) each keypoint needs ~60k shared-memory loads for its
 // box sums against ~30 KB of device-memory traffic (window, coordinates,
-// output), so it is bound by shared-memory load throughput, not by HBM.
+// output), so it is bound by shared-memory load throughput, not by HBM. On
+// an H100 (700 W) the stage ablation below attributes 55% of its device
+// time to the box sums and 19% to the window load
+// (tools/ablate_sampler.py).
 // Design: one CTA per keypoint loads its 70 x 70 window (19.6 KB) into
 // shared memory once; its threads split the S samples and sum each box
 // directly from shared memory (at most 225 loads). No integral image: an
 // f32 integral of raw [0, 255] pixels would reach ~1.25e6, whose ulp (0.125)
 // breaks the sampler's tolerance; direct sums have no such error.
+//
+// Stage ablation (replaces benchmarks/ablate_sampler.py, _kernel /
+// _ablated_sample, the stage-skipping copy of the TPU kernel): the kernel
+// is a template on a mask of stages to skip, so the timed variants and the
+// production kernel (mask 0, oip_sparse_sampler) are one function. Skipping
+// gives wrong outputs on purpose; the time a variant saves is the cost of
+// its stage:
+//   SKIP_LOAD    the window is filled from the thread's loop index, with no
+//                reads of the image (the TPU harness's roll and its DMA);
+//   SKIP_BOXSUM  each box is read at its centre cell once instead of summed
+//                (masks + matmul);
+//   SKIP_STORE   a sample is stored only if it equals a sentinel the host
+//                passes as NaN, so the work stays and no store happens
+//                (epilogue).
 
 #include <cuda_runtime.h>
 #include <math.h>
 
 namespace {
+
+constexpr int SKIP_LOAD = 1, SKIP_BOXSUM = 2, SKIP_STORE = 4;
 
 // Mean of the (2r+1)^2 box whose top-left cell is win[y][x].
 __device__ __forceinline__ float box_mean(const float* win, int psi, int y,
@@ -48,6 +67,19 @@ __device__ __forceinline__ float clampf(float v, float lo, float hi) {
   return fminf(fmaxf(v, lo), hi);
 }
 
+// The box of radius r whose top-left cell is win[y][x]: its mean, or with
+// SKIP_BOXSUM its centre cell.
+template <int SKIP>
+__device__ __forceinline__ float box_value(const float* win, int psi, int y,
+                                           int x, int r) {
+  if constexpr ((SKIP & SKIP_BOXSUM) != 0) {
+    return win[(y + r) * psi + x + r];
+  } else {
+    return box_mean(win, psi, y, x, r);
+  }
+}
+
+template <int SKIP>
 __global__ void sparse_sampler_kernel(const float* __restrict__ image,
                                       const int* __restrict__ start_y,
                                       const int* __restrict__ start_x,
@@ -56,7 +88,7 @@ __global__ void sparse_sampler_kernel(const float* __restrict__ image,
                                       const int* __restrict__ radius,
                                       float* __restrict__ out, int k, int s,
                                       int hp, int wp, int ps, int r_max,
-                                      int bilinear) {
+                                      int bilinear, float sentinel) {
   extern __shared__ float win[];
   const int psi = ps + 2 * r_max;
   const int kp = blockIdx.x;  // flat keypoint index b * k + i
@@ -65,8 +97,13 @@ __global__ void sparse_sampler_kernel(const float* __restrict__ image,
   const int y0 = min(max(start_y[kp], 0), hp - psi);
   const int x0 = min(max(start_x[kp], 0), wp - psi);
   const float* img = image + (size_t)b * hp * wp;
-  for (int i = threadIdx.x; i < psi * psi; i += blockDim.x)
-    win[i] = img[(size_t)(y0 + i / psi) * wp + x0 + i % psi];
+  for (int i = threadIdx.x; i < psi * psi; i += blockDim.x) {
+    if constexpr ((SKIP & SKIP_LOAD) != 0) {
+      win[i] = (float)(i & 255);
+    } else {
+      win[i] = img[(size_t)(y0 + i / psi) * wp + x0 + i % psi];
+    }
+  }
   __syncthreads();
 
   const float* lyk = ly + (size_t)kp * s;
@@ -81,7 +118,7 @@ __global__ void sparse_sampler_kernel(const float* __restrict__ image,
     if (!bilinear) {
       const int iy = (int)rintf(clampf(y, 0.f, last));
       const int ix = (int)rintf(clampf(x, 0.f, last));
-      v = box_mean(win, psi, o + iy, o + ix, r);
+      v = box_value<SKIP>(win, psi, o + iy, o + ix, r);
     } else {
       const float fy = floorf(y), fx = floorf(x);
       const float wy = y - fy, wx = x - fx;
@@ -89,14 +126,31 @@ __global__ void sparse_sampler_kernel(const float* __restrict__ image,
       const int y_hi = (int)clampf(fy + 1.f, 0.f, last);
       const int x_lo = (int)clampf(fx, 0.f, last);
       const int x_hi = (int)clampf(fx + 1.f, 0.f, last);
-      const float col_lo = (1.f - wy) * box_mean(win, psi, o + y_lo, o + x_lo, r) +
-                           wy * box_mean(win, psi, o + y_hi, o + x_lo, r);
-      const float col_hi = (1.f - wy) * box_mean(win, psi, o + y_lo, o + x_hi, r) +
-                           wy * box_mean(win, psi, o + y_hi, o + x_hi, r);
+      const float col_lo = (1.f - wy) * box_value<SKIP>(win, psi, o + y_lo, o + x_lo, r) +
+                           wy * box_value<SKIP>(win, psi, o + y_hi, o + x_lo, r);
+      const float col_hi = (1.f - wy) * box_value<SKIP>(win, psi, o + y_lo, o + x_hi, r) +
+                           wy * box_value<SKIP>(win, psi, o + y_hi, o + x_hi, r);
       v = (1.f - wx) * col_lo + wx * col_hi;
     }
-    outk[j] = v;
+    if constexpr ((SKIP & SKIP_STORE) != 0) {
+      if (v == sentinel) outk[j] = v;
+    } else {
+      outk[j] = v;
+    }
   }
+}
+
+template <int SKIP>
+int launch(const float* image, const int* start_y, const int* start_x,
+           const float* ly, const float* lx, const int* radius, float* out,
+           int b, int k, int s, int hp, int wp, int ps, int r_max, int bilinear,
+           float sentinel, cudaStream_t stream) {
+  const int psi = ps + 2 * r_max;
+  const size_t smem = sizeof(float) * (size_t)psi * psi;
+  sparse_sampler_kernel<SKIP><<<b * k, 256, smem, stream>>>(
+      image, start_y, start_x, ly, lx, radius, out, k, s, hp, wp, ps, r_max,
+      bilinear, sentinel);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -111,10 +165,31 @@ extern "C" int oip_sparse_sampler(const float* image, const int* start_y,
                                   float* out, int b, int k, int s, int hp,
                                   int wp, int ps, int r_max, int bilinear,
                                   void* stream) {
-  const int psi = ps + 2 * r_max;
-  const size_t smem = sizeof(float) * (size_t)psi * psi;
-  sparse_sampler_kernel<<<b * k, 256, smem, (cudaStream_t)stream>>>(
-      image, start_y, start_x, ly, lx, radius, out, k, s, hp, wp, ps, r_max,
-      bilinear);
-  return (int)cudaGetLastError();
+  return launch<0>(image, start_y, start_x, ly, lx, radius, out, b, k, s, hp,
+                   wp, ps, r_max, bilinear, 0.f, (cudaStream_t)stream);
+}
+
+// The same with the stages in ``skip`` (a mask of SKIP_LOAD = 1,
+// SKIP_BOXSUM = 2, SKIP_STORE = 4) left out; ``sentinel`` is the value a
+// sample must equal to be stored under SKIP_STORE (the host passes NaN).
+// Returns cudaErrorInvalidValue for a mask outside 0..7.
+extern "C" int oip_sparse_sampler_ablate(const float* image, const int* start_y,
+                                         const int* start_x, const float* ly,
+                                         const float* lx, const int* radius,
+                                         float* out, int b, int k, int s,
+                                         int hp, int wp, int ps, int r_max,
+                                         int bilinear, int skip, float sentinel,
+                                         void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+#define OIP_ABLATE(M)                                                          \
+  case M:                                                                      \
+    return launch<M>(image, start_y, start_x, ly, lx, radius, out, b, k, s,    \
+                     hp, wp, ps, r_max, bilinear, sentinel, st);
+  switch (skip) {
+    OIP_ABLATE(0) OIP_ABLATE(1) OIP_ABLATE(2) OIP_ABLATE(3)
+    OIP_ABLATE(4) OIP_ABLATE(5) OIP_ABLATE(6) OIP_ABLATE(7)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef OIP_ABLATE
 }

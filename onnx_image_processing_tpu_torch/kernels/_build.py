@@ -3,6 +3,8 @@
 The sources in ``csrc/`` have a plain C interface, so they compile in
 seconds without PyTorch's headers (no ``torch.utils.cpp_extension``) and are
 called through ``ctypes`` with tensor pointers and PyTorch's current stream.
+Each source compiles in its own nvcc process, all started together, and one
+last nvcc links the objects.
 The build runs at first use, never at import, into ``build/kernels/`` beside
 the package (listed in ``.gitignore``); the library's name carries a digest
 of the sources and flags, so an edited source is rebuilt and an unchanged
@@ -33,8 +35,8 @@ SOURCES = ("runtime.cu", "select_frontend.cu", "sparse_sampler.cu",
 # sm_90a: Hopper's full instruction set. No --use_fast_math: the Sinkhorn
 # tolerance needs the full-precision expf/logf. -Xptxas -v reports each
 # kernel's registers, shared memory and spills into the build log.
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 @dataclass(frozen=True)
@@ -79,21 +81,30 @@ def build() -> BuildResult:
             _result = BuildResult(out, 0.0, "")
             return _result
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        # Compile to a private name and rename: concurrent builders (test
-        # workers) never load a half-written library.
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-               *(str(CSRC / name) for name in SOURCES)]
+        nvcc = _nvcc()
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-        os.replace(tmp, out)
-        _result = BuildResult(out, seconds, log)
+        # Objects and library go to a private directory, and the library is
+        # renamed into place: concurrent builders (test workers) never load
+        # a half-written one.
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+            objs = [os.path.join(tmp, name + ".o") for name in SOURCES]
+            procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", str(CSRC / name), "-o", obj],
+                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                      text=True)
+                     for name, obj in zip(SOURCES, objs)]
+            logs = [p.communicate()[0] for p in procs]
+            log = "".join(f"== {name}\n{text}" for name, text in zip(SOURCES, logs))
+            failed = [name for name, p in zip(SOURCES, procs) if p.returncode != 0]
+            if failed:
+                raise RuntimeError(f"nvcc failed on {failed}:\n{log}")
+            lib = os.path.join(tmp, "lib.so")
+            proc = subprocess.run([nvcc, *ARCH, "-shared", "-o", lib, *objs],
+                                  capture_output=True, text=True)
+            log += proc.stdout + proc.stderr
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{log}")
+            os.replace(lib, out)
+        _result = BuildResult(out, time.perf_counter() - t0, log)
         return _result
 
 

@@ -5,6 +5,10 @@ Port of ``onnx_image_processing_tpu/kernels/sparse_sampler.py``
 ``csrc/sparse_sampler.cu``; on a CPU tensor it runs :func:`box_sample_plain`,
 the port of ``reference_box_sample``. The TPU kernel's DMA alignment, MXU
 interval-mask contraction and bf16x3 operand split are not carried over.
+
+:func:`box_sample_ablated` is the port of ``benchmarks/ablate_sampler.py``:
+the same kernel with some of its own stages skipped (:data:`STAGES`), so
+that the time each variant saves attributes the kernel's cost.
 """
 
 from __future__ import annotations
@@ -16,6 +20,11 @@ import torch
 from . import LaunchCounter, _build, use_kernel
 
 LAUNCHES = LaunchCounter("sparse_sampler")
+ABLATE_LAUNCHES = LaunchCounter("sparse_sampler_ablate")
+
+# Stages of the CUDA kernel that the ablation can skip, and their bits in
+# the kernel's skip mask (csrc/sparse_sampler.cu).
+STAGES = {"load": 1, "boxsum": 2, "store": 4}
 
 
 def box_sample_plain(image_padded: torch.Tensor, start_y: torch.Tensor,
@@ -27,6 +36,10 @@ def box_sample_plain(image_padded: torch.Tensor, start_y: torch.Tensor,
     Cuts each keypoint's psi x psi window, builds the radius-r box-mean bank
     of every group by shift-and-add (x, then y), and reads the bank at the
     sample coordinates: one tap in nearest mode, two per axis in bilinear.
+    The box sum is divided by its area held as a tensor on the window's
+    device: PyTorch's CUDA division by a Python number multiplies by the
+    reciprocal, which may differ from the kernel's true division in the last
+    bit.
     """
     b, k, s = ly.shape
     psi = ps + 2 * r_max
@@ -54,7 +67,7 @@ def box_sample_plain(image_padded: torch.Tensor, start_y: torch.Tensor,
         for dy in range(1, 2 * r + 1):
             bank = bank + acc[..., dy:dy + ps, :]
         if r > 0:
-            bank = bank / float((2 * r + 1) ** 2)
+            bank = bank / torch.full((), float((2 * r + 1) ** 2), device=dev)
         flat = bank.reshape(b, k, ps * ps)
 
         def tap(iy, ix):
@@ -97,6 +110,83 @@ def box_sample(image_padded: torch.Tensor, start_y: torch.Tensor,
     if not use_kernel(image_padded):
         return box_sample_plain(image_padded, start_y, start_x, ly, lx, radius,
                                 groups, ps, r_max, bilinear)
+    out = _checked_output(image_padded, start_y, start_x, ly, lx, radius, ps, r_max)
+    fn = _build.entry("oip_sparse_sampler", [ctypes.c_void_p] * 7
+                      + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+    err = fn(*_pointers(image_padded, start_y, start_x, ly, lx, radius, out),
+             *_dims(image_padded, ly), ps, r_max, int(bilinear),
+             _build.stream(image_padded))
+    _build.check(err, "sparse_sampler launch")
+    LAUNCHES.count += 1
+    return out
+
+
+def box_sample_ablated(image_padded: torch.Tensor, start_y: torch.Tensor,
+                       start_x: torch.Tensor, ly: torch.Tensor, lx: torch.Tensor,
+                       radius: torch.Tensor, groups: tuple, ps: int, r_max: int,
+                       bilinear: bool = False, skip=(),
+                       out: torch.Tensor | None = None) -> torch.Tensor:
+    """:func:`box_sample` with the kernel stages in ``skip`` left out (a
+    subset of :data:`STAGES`); ``skip=()`` is the production kernel.
+
+    'load' fills each window from the thread index instead of the image,
+    'boxsum' reads each box at its centre cell instead of summing it,
+    'store' computes every sample and stores none. ``out`` (B, K, S) float32
+    receives the samples (a new buffer if None), so a caller can see that
+    'store' left it untouched.
+
+    On a CPU tensor only the variants with a plain definition run:
+    ``skip=()`` is :func:`box_sample_plain`, ``skip=("boxsum",)`` is
+    :func:`box_sample_plain` with every group's radius set to 0 (the
+    centre cell).
+    """
+    unknown = set(skip) - set(STAGES)
+    if unknown:
+        raise ValueError(f"unknown stages {sorted(unknown)}; stages are {list(STAGES)}")
+    if not use_kernel(image_padded):
+        if set(skip) - {"boxsum"}:
+            raise ValueError(f"skip={tuple(skip)} has no plain version; only () and "
+                             "('boxsum',) run on the CPU")
+        if "boxsum" in skip:
+            groups = tuple((0, lo, hi) for (_, lo, hi) in groups)
+        result = box_sample_plain(image_padded, start_y, start_x, ly, lx, radius,
+                                  groups, ps, r_max, bilinear)
+        if out is None:
+            return result
+        return out.copy_(result)
+    checked = _checked_output(image_padded, start_y, start_x, ly, lx, radius, ps, r_max)
+    if out is None:
+        out = checked
+    elif (out.device != image_padded.device or out.dtype != torch.float32
+          or out.shape != checked.shape or not out.is_contiguous()):
+        raise ValueError(f"out must be a contiguous {tuple(checked.shape)} float32 "
+                         f"tensor on {image_padded.device}")
+    mask = sum(STAGES[name] for name in set(skip))
+    fn = _build.entry("oip_sparse_sampler_ablate", [ctypes.c_void_p] * 7
+                      + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p])
+    err = fn(*_pointers(image_padded, start_y, start_x, ly, lx, radius, out),
+             *_dims(image_padded, ly), ps, r_max, int(bilinear), mask,
+             float("nan"), _build.stream(image_padded))
+    _build.check(err, "sparse_sampler_ablate launch")
+    ABLATE_LAUNCHES.count += 1
+    return out
+
+
+def _pointers(*tensors: torch.Tensor) -> list:
+    return [_build.ptr(t) for t in tensors]
+
+
+def _dims(image_padded: torch.Tensor, ly: torch.Tensor) -> tuple:
+    """(b, k, s, hp, wp) of a launch."""
+    b, hp, wp = image_padded.shape
+    return b, ly.shape[1], ly.shape[2], hp, wp
+
+
+def _checked_output(image_padded: torch.Tensor, start_y: torch.Tensor,
+                    start_x: torch.Tensor, ly: torch.Tensor, lx: torch.Tensor,
+                    radius: torch.Tensor, ps: int, r_max: int) -> torch.Tensor:
+    """Check the kernel's inputs (device, type, shape, contiguity, window
+    size) and return a new (B, K, S) float32 output buffer."""
     b, hp, wp = image_padded.shape
     k, s = ly.shape[1], ly.shape[2]
     psi = ps + 2 * r_max
@@ -121,13 +211,4 @@ def box_sample(image_padded: torch.Tensor, start_y: torch.Tensor,
                          f"{psi}x{psi} sample window")
     if psi * psi * 4 > 48 * 1024:
         raise ValueError(f"a {psi}x{psi} window exceeds 48 KB of shared memory")
-    out = torch.empty((b, k, s), dtype=torch.float32, device=image_padded.device)
-    fn = _build.entry("oip_sparse_sampler", [ctypes.c_void_p] * 7
-                      + [ctypes.c_int] * 8 + [ctypes.c_void_p])
-    err = fn(_build.ptr(image_padded), _build.ptr(start_y), _build.ptr(start_x),
-             _build.ptr(ly), _build.ptr(lx), _build.ptr(radius), _build.ptr(out),
-             b, k, s, hp, wp, ps, r_max, int(bilinear),
-             _build.stream(image_padded))
-    _build.check(err, "sparse_sampler launch")
-    LAUNCHES.count += 1
-    return out
+    return torch.empty((b, k, s), dtype=torch.float32, device=image_padded.device)

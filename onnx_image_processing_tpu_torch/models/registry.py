@@ -1,12 +1,14 @@
 """Pipeline registry of the port: name -> module on a device.
 
-The ported sparse matchers (flagship, its with-filters variant, the
-unoriented matcher, AKAZE, the two essential-matrix pipelines), their
-``_extraction`` wrappers, the ``akaze`` head and the standalone ``sinkhorn``
-and ``essential_matrix_estimator``, each with the JAX registry's defaults:
-the reference's export defaults (flagship: 512 hard-binarized pairs, eps
-0.05, nms radius 5, Shi-Tomasi block 5; AKAZE matcher: 512 unbinarized
-pairs, 1024 keypoints, eps 0.05, nms radius 3).
+The ported matchers (flagship, its with-filters variant, the unoriented and
+the dense-descriptor matchers, AKAZE, the two essential-matrix pipelines),
+their ``_extraction`` wrappers, the single-image heads (``shi_tomasi``,
+``shi_tomasi_angle``, ``shi_tomasi_bad``, ``shi_tomasi_angle_sparse_bad``,
+``bad``, ``akaze``) and the standalone ``sinkhorn`` and
+``essential_matrix_estimator``, each with the JAX registry's defaults: the
+reference's export defaults (flagship: 512 hard-binarized pairs, eps 0.05,
+nms radius 5, Shi-Tomasi block 5; AKAZE matcher: 512 unbinarized pairs,
+1024 keypoints, eps 0.05, nms radius 3).
 """
 
 from __future__ import annotations
@@ -20,13 +22,16 @@ from torch import nn
 
 from ..core import MatcherConfig
 from ..geometry import estimate_essential_matrix
+from ..ops import BADTable, dense_bad, load_bad_params, shi_tomasi_score
 from .akaze_family import AKAZESparseBADSinkhorn, akaze_detect_cfg
 from .essential_family import (AKAZESparseBADSinkhornEssential,
                                ShiTomasiAngleSparseBADSinkhornEssential)
 from .extraction import with_match_extraction
 from .shi_tomasi_family import (ShiTomasiAngleSparseBADSinkhorn,
                                 ShiTomasiAngleSparseBADSinkhornWithFilters,
-                                ShiTomasiSparseBADSinkhorn, _check_devices,
+                                ShiTomasiBADSinkhorn, ShiTomasiSparseBADSinkhorn,
+                                _check_devices, shi_tomasi_angle_sparse_bad_detect,
+                                shi_tomasi_bad_detect, shi_tomasi_with_angle,
                                 sinkhorn_cfg)
 
 
@@ -98,6 +103,24 @@ class Standalone(nn.Module):
         return self.fn(*inputs, self.cfg)
 
 
+class TableHead(Standalone):
+    """A single-image head that holds a BAD table as buffers:
+    ``forward(image)`` is ``fn(image, cfg, table)``."""
+
+    def __init__(self, cfg: MatcherConfig, fn: Callable):
+        super().__init__(cfg, fn)
+        self.table = BADTable(load_bad_params(cfg.num_pairs))
+
+    def forward(self, *inputs: torch.Tensor):
+        _check_devices(self.device, *inputs)
+        return self.fn(*inputs, self.cfg, self.table)
+
+
+def _dense_map(image, cfg: MatcherConfig, table: BADTable):
+    return dense_bad(image, table, binarize=cfg.binarize,
+                     soft_binarize=cfg.soft_binarize, temperature=cfg.temperature)
+
+
 def _grid_essential(p, k_inv, cfg: MatcherConfig):
     """The standalone estimator on a sqrt(K) x sqrt(K) pixel grid."""
     side = max(2, math.isqrt(cfg.max_keypoints))
@@ -105,6 +128,8 @@ def _grid_essential(p, k_inv, cfg: MatcherConfig):
 
 
 _MATCHERS = [
+    ("shi_tomasi_bad_sinkhorn", ShiTomasiBADSinkhorn, _CI.with_(block_size=3),
+     "dense-descriptor two-image matcher"),
     ("shi_tomasi_sparse_bad_sinkhorn", ShiTomasiSparseBADSinkhorn,
      _CI.with_(block_size=3), "sparse unoriented matcher"),
     ("shi_tomasi_angle_sparse_bad_sinkhorn", ShiTomasiAngleSparseBADSinkhorn,
@@ -132,6 +157,23 @@ register(PipelineSpec(
     AKAZESparseBADSinkhornEssential, _AKAZE,
     "AKAZE matcher + in-graph essential matrix", takes_k_inv=True))
 
+register(PipelineSpec(
+    "shi_tomasi",
+    lambda cfg: Standalone(cfg, lambda img, c: shi_tomasi_score(img, block_size=c.block_size)),
+    _BASE, "Shi-Tomasi corner score map"))
+register(PipelineSpec(
+    "shi_tomasi_angle", lambda cfg: Standalone(cfg, shi_tomasi_with_angle),
+    _BASE.with_(block_size=5), "Shi-Tomasi scores + orientation map"))
+register(PipelineSpec(
+    "shi_tomasi_bad", lambda cfg: TableHead(cfg, shi_tomasi_bad_detect), _BASE,
+    "Shi-Tomasi scores + dense BAD descriptor map"))
+register(PipelineSpec(
+    "shi_tomasi_angle_sparse_bad",
+    lambda cfg: TableHead(cfg, shi_tomasi_angle_sparse_bad_detect),
+    _BASE.with_(block_size=5), "single-image keypoints + oriented descriptors"))
+register(PipelineSpec(
+    "bad", lambda cfg: TableHead(cfg, _dense_map), _BASE,
+    "dense BAD descriptor map (binarize / soft_binarize select none, soft or hard)"))
 register(PipelineSpec("akaze", lambda cfg: Standalone(cfg, akaze_detect_cfg), _BASE,
                       "AKAZE scores + orientation maps"))
 register(PipelineSpec(

@@ -1,7 +1,7 @@
-"""The Shi-Tomasi sparse matchers (port of
+"""The Shi-Tomasi family (port of
 ``onnx_image_processing_tpu/models/shi_tomasi_family.py``): the flagship
-rotation-invariant matcher, its with-filters variant and the unoriented
-matcher.
+rotation-invariant matcher, its with-filters variant, the unoriented and
+the dense-descriptor matchers, and the single-image heads.
 
 Detect -> NMS/top-k -> (oriented) sparse BAD -> Sinkhorn, with the two
 images stacked into one batch so detection and description run once. Each
@@ -27,17 +27,20 @@ from torch import nn
 
 from ..core import MatcherConfig
 from ..kernels import detect_frontend
-from ..ops import (BADTable, angle_moments, load_bad_params, nms_select_topk,
-                   select_topk_keypoints, shi_tomasi_score, sinkhorn_match,
-                   sinkhorn_match_with_filters, sparse_bad)
+from ..ops import (BADTable, angle_estimation, angle_moments, dense_bad,
+                   load_bad_params, nms_select_topk, select_topk_keypoints,
+                   shi_tomasi_score, sinkhorn_match, sinkhorn_match_with_filters,
+                   sparse_bad)
 
 
-def _resolve_border_margin(cfg: MatcherConfig, table: BADTable) -> int:
-    """None -> the descriptor's max box radius, so every sampled box of a
-    selected keypoint lies in the image."""
+def _resolve_border_margin(cfg: MatcherConfig, table: BADTable,
+                           sparse: bool = True) -> int:
+    """None -> the descriptor's max box radius for the sparse pipelines, so
+    every sampled box of a selected keypoint lies in the image; 0 for the
+    dense ones, the reference's no-margin default."""
     if cfg.border_margin is not None:
         return cfg.border_margin
-    return table.max_radius
+    return table.max_radius if sparse else 0
 
 
 def _select_keypoints(scores_b1hw: torch.Tensor, cfg: MatcherConfig,
@@ -70,6 +73,55 @@ def _fused_detect_select(image: torch.Tensor, cfg: MatcherConfig, margin: int,
     return kpts, kscores, (m10, m01) if with_angle else None
 
 
+def _descriptor_kw(cfg: MatcherConfig) -> dict:
+    """:func:`sparse_bad`'s binarization and normalization options."""
+    return dict(binarize=cfg.binarize, soft_binarize=cfg.soft_binarize,
+                temperature=cfg.temperature,
+                normalize_descriptors=cfg.normalize_descriptors)
+
+
+# ---- single-image heads ------------------------------------------------------
+
+def shi_tomasi_with_angle(image: torch.Tensor, cfg: MatcherConfig):
+    """Score and orientation maps, each (B, 1, H, W)."""
+    return (shi_tomasi_score(image, block_size=cfg.block_size),
+            angle_estimation(image, patch_size=cfg.patch_size, sigma=cfg.sigma))
+
+
+def shi_tomasi_bad_detect(image: torch.Tensor, cfg: MatcherConfig, table: BADTable):
+    """Dense detector head: scores (B, 1, H, W) and the dense BAD map
+    (B, P, H, W)."""
+    return (shi_tomasi_score(image, block_size=cfg.block_size),
+            dense_bad(image, table, binarize=cfg.binarize,
+                      soft_binarize=cfg.soft_binarize, temperature=cfg.temperature))
+
+
+def shi_tomasi_angle_sparse_bad_detect(image: torch.Tensor, cfg: MatcherConfig,
+                                       table: BADTable):
+    """Single-image keypoints (B, K, 2), scores (B, K) and oriented sparse
+    descriptors (B, K, P).
+
+    This head selects with no border margin by default (the reference
+    detector passes the select util's default of 0), unlike the matchers.
+    With ``fused_detect`` the detect frontend gives the masked scores and
+    the moments; without it the orientation is the dense angle map.
+    """
+    margin = cfg.border_margin if cfg.border_margin is not None else 0
+    if cfg.fused_detect:
+        kpts, kscores, orientation_mm = _fused_detect_select(image, cfg, margin, True)
+        angles = None
+    else:
+        scores, angles = shi_tomasi_with_angle(image, cfg)
+        kpts, kscores = _select_keypoints(scores, cfg, margin)
+        orientation_mm = None
+    desc = sparse_bad(image, kpts, table, orientation=angles,
+                      orientation_mm=orientation_mm,
+                      sampling_mode=cfg.sampling_mode, **_descriptor_kw(cfg))
+    return kpts, kscores, desc
+
+
+# ---- two-image matchers ------------------------------------------------------
+
 def _stack_pair(image1: torch.Tensor, image2: torch.Tensor) -> torch.Tensor:
     return torch.cat([image1, image2], dim=0)  # (2B, 1, H, W)
 
@@ -98,10 +150,30 @@ def _sparse_detect_describe(both: torch.Tensor, cfg: MatcherConfig,
                           if with_angle else None)
         kpts, kscores = _select_keypoints(scores, cfg, margin)
     desc = sparse_bad(both, kpts, table, orientation_mm=orientation_mm,
-                      binarize=cfg.binarize, soft_binarize=cfg.soft_binarize,
-                      temperature=cfg.temperature,
-                      normalize_descriptors=cfg.normalize_descriptors,
-                      sampling_mode=cfg.sampling_mode)
+                      sampling_mode=cfg.sampling_mode, **_descriptor_kw(cfg))
+    return kpts, kscores, desc
+
+
+def _dense_detect_describe(images: torch.Tensor, cfg: MatcherConfig,
+                           table: BADTable):
+    """The dense matcher's frontend (batch-parallel, also its streaming
+    half): Shi-Tomasi select without the sparse border margin, then
+    unoriented descriptors sampled bilinearly.
+
+    The dense map is linear in the shifted box banks and the interpolation
+    weights sum to 1, so the bilinear interpolation of the map at a
+    keypoint equals the descriptor of the bilinearly sampled box means
+    there: the sampler gives the reference's (B, P, H, W) map-and-sample
+    without building the map.
+
+    Returns:
+        keypoints (B, K, 2), scores (B, K), descriptors (B, K, P).
+    """
+    scores = shi_tomasi_score(images, block_size=cfg.block_size)
+    margin = _resolve_border_margin(cfg, table, sparse=False)
+    kpts, kscores = _select_keypoints(scores, cfg, margin)
+    desc = sparse_bad(images, kpts, table, sampling_mode="bilinear",
+                      **_descriptor_kw(cfg))
     return kpts, kscores, desc
 
 
@@ -148,6 +220,17 @@ def shi_tomasi_sparse_bad_sinkhorn_match(image1: torch.Tensor,
     return match_plain(*_pair_features(
         image1, image2,
         lambda x: _sparse_detect_describe(x, cfg, table, with_angle=False)), cfg)
+
+
+def shi_tomasi_bad_sinkhorn_match(image1: torch.Tensor, image2: torch.Tensor,
+                                  cfg: MatcherConfig, table: BADTable):
+    """Dense-descriptor matcher.
+
+    Returns:
+        keypoints1 (B, K, 2), keypoints2 (B, K, 2), P (B, K+1, K+1).
+    """
+    return match_plain(*_pair_features(
+        image1, image2, lambda x: _dense_detect_describe(x, cfg, table)), cfg)
 
 
 def shi_tomasi_angle_sparse_bad_sinkhorn_match(image1: torch.Tensor,
@@ -238,6 +321,15 @@ class ShiTomasiSparseBADSinkhorn(SparseMatcher):
     def features(self, images: torch.Tensor):
         return _sparse_detect_describe(images, self.cfg, self.table,
                                        with_angle=False)
+
+
+class ShiTomasiBADSinkhorn(SparseMatcher):
+    """The dense-descriptor matcher: ``forward(image1, image2)`` returns
+    (keypoints1, keypoints2, P). Its descriptors are the dense BAD map
+    sampled bilinearly at the keypoints, computed by the sampler."""
+
+    def features(self, images: torch.Tensor):
+        return _dense_detect_describe(images, self.cfg, self.table)
 
 
 class ShiTomasiAngleSparseBADSinkhornWithFilters(ShiTomasiAngleSparseBADSinkhorn):

@@ -1,7 +1,7 @@
 """Streaming (feature-cached) matchers for sequential frames (port of
 ``onnx_image_processing_tpu/models/streaming.py``).
 
-Every sparse matcher splits at its natural seam::
+Every two-image matcher splits at its natural seam::
 
     extract(image)                          -> (keypoints, scores, descriptors)
     match(feats_prev, feats_curr[, k_inv])  -> the matcher's outputs
@@ -23,6 +23,7 @@ from .extraction import append_mutual_matches
 from .shi_tomasi_family import _check_devices
 
 _STREAMING = frozenset({
+    "shi_tomasi_bad_sinkhorn",
     "shi_tomasi_sparse_bad_sinkhorn",
     "shi_tomasi_angle_sparse_bad_sinkhorn",
     "shi_tomasi_angle_sparse_bad_sinkhorn_with_filters",
@@ -30,8 +31,6 @@ _STREAMING = frozenset({
     "akaze_sparse_bad_sinkhorn",
     "akaze_sparse_bad_sinkhorn_essential_matrix",
 })
-# Streaming entries of the JAX package whose matcher the port lacks.
-_UNPORTED = {"shi_tomasi_bad_sinkhorn": "the dense family (dense BAD)"}
 
 
 def streaming_names() -> list[str]:
@@ -102,9 +101,6 @@ def build_streaming(name: str, cfg: MatcherConfig | None = None, *,
 
     with_extraction = name.endswith("_extraction")
     base = name.removesuffix("_extraction")
-    if base in _UNPORTED:
-        raise KeyError(f"no streaming split for {name!r} in the port: "
-                       f"{_UNPORTED[base]} is not ported yet")
     if base not in _STREAMING:
         raise KeyError(
             f"no streaming split for {name!r}; available: {streaming_names()} "

@@ -1,8 +1,9 @@
-"""Sparse BAD (Box Average Difference) descriptors (port of
-``onnx_image_processing_tpu/ops/bad.py``, the sparse path).
+"""BAD (Box Average Difference) descriptors, sparse and dense (port of
+``onnx_image_processing_tpu/ops/bad.py``).
 
-The learned box-pair constants are data: ``load_bad_params`` reads the JAX
-package's ``data/bad_params_{256,512}.npz`` with numpy, and :class:`BADTable`
+The learned box-pair constants are data: ``load_bad_params`` reads the
+port's own ``data/bad_params_{256,512}.npz`` (byte copies of the JAX
+package's) with numpy, and :class:`BADTable`
 holds what the descriptor path needs as module buffers, so ``.to(device)``
 moves the table with the model.
 """
@@ -16,13 +17,11 @@ import numpy as np
 import torch
 from torch import nn
 
-import onnx_image_processing_tpu
+from ..kernels import sparse_sampler, use_kernel
+from .filters import box_average_bank, edge_extend, pad2d
+from .sampling import sample_bank_fused, sample_bilinear, sample_nearest
 
-from ..kernels import sparse_sampler
-from .filters import edge_extend, pad2d
-from .sampling import sample_nearest
-
-_DATA_DIR = Path(onnx_image_processing_tpu.__file__).resolve().parent / "data"
+_DATA_DIR = Path(__file__).resolve().parents[1] / "data"
 
 # Patch geometry of the sampler window, kept exactly as the JAX package's:
 # learned offsets lie in [-16, 15], so any rotation keeps |offset| < 23; row
@@ -30,6 +29,9 @@ _DATA_DIR = Path(onnx_image_processing_tpu.__file__).resolve().parent / "data"
 # 56 x 56 window. Both packages then see the same windows.
 _PATCH_HALF = 23
 _PATCH = 56
+# The tiled dense route streams row chunks of the pixel grid through the
+# sampler, each chunk's ly, lx and output at most this many bytes.
+_TILED_CHUNK_BYTES = 256 << 20
 
 
 @dataclass(frozen=True)
@@ -284,3 +286,125 @@ def sparse_bad(
         norm = torch.sqrt((desc * desc).sum(dim=-1, keepdim=True))
         desc = desc / norm.clamp_min(1e-12)
     return desc
+
+
+def _pair_boxes(table: BADTable):
+    """Per-pair box geometry from the table's buffers, on its device: radius
+    (P,) and the (y, x) offsets of box 1 and box 2, each (P,) float32."""
+    return (table.sample_radius[table.idx1], table.off_y[table.idx1],
+            table.off_x[table.idx1], table.off_y[table.idx2], table.off_x[table.idx2])
+
+
+def dense_bad(
+    image: torch.Tensor,
+    table: BADTable,
+    orientation: torch.Tensor | None = None,
+    binarize: bool = False,
+    soft_binarize: bool = True,
+    temperature: float = 10.0,
+    oriented_route: str = "auto",
+) -> torch.Tensor:
+    """Dense BAD descriptor map, (B, P, H, W).
+
+    Args:
+        image: (B, 1, H, W) grayscale image.
+        table: the pair table (:class:`BADTable`), on the image's device.
+        orientation: optional (B, 1, H, W) per-pixel orientation in radians;
+            when given, the pair offsets are rotated per pixel. Without it
+            each pair's box mean is a clamped integer shift of one channel
+            of the box-average bank, gathered for all 2P boxes at once.
+        oriented_route: how the oriented map is evaluated. 'gather' samples
+            the bank bilinearly at all H*W*2P rotated positions (the exact
+            oracle; several (B, P, H, W) index tensors). 'tiled' treats every
+            pixel as a keypoint and streams row chunks of the grid through
+            :func:`sparse_bad` in bilinear mode, i.e. through the sampler
+            kernel on a CUDA tensor (within ~2e-3 of 'gather'). 'auto' picks
+            'tiled' for a CUDA tensor and 'gather' for a CPU tensor.
+    """
+    if oriented_route not in ("auto", "gather", "tiled"):
+        raise ValueError(f"oriented_route must be auto|gather|tiled, got {oriented_route}")
+    if orientation is not None and (oriented_route == "tiled" or (
+            oriented_route == "auto" and use_kernel(image))):
+        return _dense_oriented_tiled(image, table, orientation, binarize,
+                                     soft_binarize, temperature)
+    x = image.to(torch.float32)[:, 0]
+    b, h, w = x.shape
+    p = table.num_pairs
+    dev = x.device
+    bank = box_average_bank(x, table.max_radius)            # (B, R+1, H, W)
+    radius, oy1, ox1, oy2, ox2 = _pair_boxes(table)
+    if orientation is None:
+        # Learned offsets are integers: box j of pair p is bank channel r_p
+        # at rows clamp(i + dy_j), columns clamp(k + dx_j); one gather takes
+        # all 2P shifted boxes.
+        ch = torch.cat([radius, radius]).long()
+        dy = torch.cat([oy1, oy2]).long()
+        dx = torch.cat([ox1, ox2]).long()
+        rows = (torch.arange(h, device=dev) + dy[:, None]).clamp(0, h - 1)
+        cols = (torch.arange(w, device=dev) + dx[:, None]).clamp(0, w - 1)
+        boxes = bank[:, ch[:, None, None], rows[:, :, None], cols[:, None, :]]
+        diff = boxes[:, :p] - boxes[:, p:]                  # (B, P, H, W)
+    else:
+        theta = orientation.to(torch.float32)[:, 0]
+        cos_t = torch.cos(theta)[:, None]                   # (B, 1, H, W)
+        sin_t = torch.sin(theta)[:, None]
+        base_y = torch.arange(h, dtype=torch.float32, device=dev)[None, None, :, None]
+        base_x = torch.arange(w, dtype=torch.float32, device=dev)[None, None, None, :]
+        chan = radius[None, :, None, None]
+
+        def rot_sample(ox, oy):
+            ox, oy = ox[None, :, None, None], oy[None, :, None, None]
+            py = (base_y + (ox * sin_t + oy * cos_t)).expand(b, p, h, w)
+            px = (base_x + (ox * cos_t - oy * sin_t)).expand(b, p, h, w)
+            return sample_bank_fused(bank, chan, py, px, mode="bilinear")
+
+        diff = rot_sample(ox1, oy1) - rot_sample(ox2, oy2)
+    centered = diff - table.thresholds[None, :, None, None]
+    return _finalize(centered, binarize, soft_binarize, temperature)
+
+
+def _dense_oriented_tiled(image: torch.Tensor, table: BADTable,
+                          orientation: torch.Tensor, binarize: bool,
+                          soft_binarize: bool, temperature: float) -> torch.Tensor:
+    """The oriented dense map with every pixel as a keypoint, in row chunks
+    (at most ``_TILED_CHUNK_BYTES`` of ly, lx and output each), each chunk
+    one :func:`sparse_bad` call in bilinear mode; finalized once."""
+    b, _, h, w = image.shape
+    p, s = table.num_pairs, table.off_y.shape[0]
+    rows = max(1, _TILED_CHUNK_BYTES // (3 * 4 * b * s * w))
+    dev = image.device
+    xs = torch.arange(w, dtype=torch.float32, device=dev)
+    centered = torch.empty((b, p, h * w), dtype=torch.float32, device=dev)
+    for y0 in range(0, h, rows):
+        ys = torch.arange(y0, min(y0 + rows, h), dtype=torch.float32, device=dev)
+        grid = torch.stack(torch.meshgrid(ys, xs, indexing="ij"), dim=-1).reshape(1, -1, 2)
+        # binarize=False: the raw centered values (s1 - s2 - threshold).
+        chunk = sparse_bad(image, grid.expand(b, -1, -1), table, orientation=orientation,
+                           binarize=False, normalize_descriptors=False,
+                           sampling_mode="bilinear")
+        centered[:, :, y0 * w:y0 * w + grid.shape[1]] = chunk.transpose(1, 2)
+    out = _finalize(centered, binarize, soft_binarize, temperature)
+    return out.reshape(b, p, h, w)
+
+
+def extract_descriptors_at_keypoints(descriptor_map: torch.Tensor,
+                                     keypoints: torch.Tensor) -> torch.Tensor:
+    """Dense descriptors (B, D, H, W) gathered at integer (y, x) keypoints
+    (B, K, 2) -> (B, K, D)."""
+    b, d, h, w = descriptor_map.shape
+    idx = keypoints[:, :, 0].long() * w + keypoints[:, :, 1].long()   # (B, K)
+    flat = descriptor_map.reshape(b, d, h * w)
+    out = torch.gather(flat, 2, idx[:, None, :].expand(b, d, idx.shape[-1]))
+    return out.transpose(1, 2)
+
+
+def extract_descriptors_at_keypoints_subpixel(descriptor_map: torch.Tensor,
+                                              keypoints: torch.Tensor) -> torch.Tensor:
+    """Bilinear sub-pixel descriptor extraction (grid_sample bilinear, border
+    padding, align_corners=True) -> (B, K, D)."""
+    b, d, h, w = descriptor_map.shape
+    k = keypoints.shape[1]
+    y = keypoints[:, None, :, 0].expand(b, d, k).reshape(b * d, k)
+    x = keypoints[:, None, :, 1].expand(b, d, k).reshape(b * d, k)
+    vals = sample_bilinear(descriptor_map.reshape(b * d, h, w), y, x)
+    return vals.reshape(b, d, k).transpose(1, 2)

@@ -74,6 +74,38 @@ def conv1d_w(x: torch.Tensor, taps) -> torch.Tensor:
     return acc
 
 
+def sep_conv2d(x: torch.Tensor, col_taps, row_taps,
+               mode: str = "zero") -> torch.Tensor:
+    """Separable 2-D cross-correlation with kernel ``col_taps (x) row_taps``,
+    "same" output size, border padded by ``mode`` (see :func:`pad2d`)."""
+    col_taps = np.asarray(col_taps, dtype=np.float32)
+    row_taps = np.asarray(row_taps, dtype=np.float32)
+    xp = pad2d(x, col_taps.shape[0] // 2, row_taps.shape[0] // 2, mode=mode)
+    return conv1d_w(conv1d_h(xp, col_taps), row_taps)
+
+
+def box_sum2d(x: torch.Tensor, size: int, mode: str = "edge") -> torch.Tensor:
+    """Sum over a ``size x size`` window (separable ones kernel)."""
+    ones = np.ones(size, dtype=np.float32)
+    return sep_conv2d(x, ones, ones, mode=mode)
+
+
+def box_average_bank(image_bhw: torch.Tensor, max_radius: int) -> torch.Tensor:
+    """Box-average bank, (B, R+1, H, W): channel r is the mean over the
+    (2r+1)^2 window of the replicate-padded image; channel 0 is the image.
+    Each channel is a separable box sum of one shared padded slab."""
+    h, w = image_bhw.shape[-2:]
+    xp = pad2d(image_bhw, max_radius, max_radius, mode="edge")
+    outs = [image_bhw]
+    for r in range(1, max_radius + 1):
+        k = 2 * r + 1
+        ones = np.ones(k, dtype=np.float32)
+        m = max_radius - r
+        sub = xp[:, m:m + h + 2 * r, m:m + w + 2 * r]
+        outs.append(conv1d_w(conv1d_h(sub, ones), ones) / float(k * k))
+    return torch.stack(outs, dim=1)
+
+
 def gaussian_taps(sigma: float, size: int) -> np.ndarray:
     """Unnormalized 1-D Gaussian taps exp(-t^2 / (2 sigma^2)), t centered."""
     half = size // 2

@@ -6,8 +6,8 @@ call beside them.
     python -m onnx_image_processing_tpu_torch.tools.profile_paths   # repo root
 
 Each two-image path (the flagship, the flagship with ``fused_detect=True``,
-the AKAZE matcher; ``chip_smoke.py``'s pair and settings) is one call on the
-pair. Each VO path (the AKAZE essential pipeline at its registry defaults,
+the AKAZE matcher, the dense matcher; ``chip_smoke.py``'s pair and settings)
+is one call on the pair. Each VO path (the AKAZE essential pipeline at its registry defaults,
 the flagship essential pipeline with 256 RANSAC hypotheses; phase 7 of
 ``chip_smoke.py``) is profiled three ways: one VO frame (extract the new
 frame, match it against cached reference features, one host copy of the
@@ -37,6 +37,7 @@ PATHS = {
     "flagship": ("shi_tomasi_angle_sparse_bad_sinkhorn", dict(max_keypoints=512)),
     "fused": ("shi_tomasi_angle_sparse_bad_sinkhorn", dict(max_keypoints=512, fused_detect=True)),
     "AKAZE": ("akaze_sparse_bad_sinkhorn", {}),
+    "dense": ("shi_tomasi_bad_sinkhorn", {}),
 }
 VO_PATHS = {
     "VO AKAZE": ("akaze_sparse_bad_sinkhorn_essential_matrix", {}),

@@ -9,6 +9,8 @@ pixels); the matcher equal keypoints, or at most 2 swaps per image, with P
 within 5e-3 on the common keypoints.
 """
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -187,7 +189,8 @@ def test_akaze_head_matches_jax(gray_image):
 
 @pytest.mark.parametrize("name", NAMES)
 def test_akaze_registry_defaults_match_jax(name):
-    assert models.get(name).defaults == jax_models.get(name).defaults
+    assert dataclasses.asdict(models.get(name).defaults) == \
+        dataclasses.asdict(jax_models.get(name).defaults)
     if name != "akaze":
         d = models.get(name).defaults
         assert (d.num_pairs, d.max_keypoints, d.epsilon, d.nms_radius, d.binarize) == (

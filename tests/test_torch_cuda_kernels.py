@@ -75,7 +75,8 @@ def test_flagship_launches_each_kernel(dev):
     out = fn(*imgs)
     torch.cuda.synchronize()
     assert launch_counts() == {"select_frontend": 1, "sparse_sampler": 1, "sinkhorn": 1,
-                               "detect_frontend": 0, "akaze_ladder": 0}
+                               "detect_frontend": 0, "akaze_ladder": 0,
+                               "sparse_sampler_ablate": 0}
     assert out[0].shape == (1, 64, 2) and out[0].is_cuda
 
 
@@ -133,7 +134,8 @@ def test_akaze_matcher_launches_each_kernel(dev):
     out = fn(*imgs)
     torch.cuda.synchronize()
     assert launch_counts() == {"select_frontend": 1, "sparse_sampler": 1, "sinkhorn": 1,
-                               "detect_frontend": 0, "akaze_ladder": 1}
+                               "detect_frontend": 0, "akaze_ladder": 1,
+                               "sparse_sampler_ablate": 0}
     assert out[0].shape == (1, 64, 2) and out[0].is_cuda
 
 
@@ -154,3 +156,62 @@ def test_kernel_wrappers_validate_inputs(dev):
         akaze_ladder.akaze_ladder(torch.zeros((1, 1, 8, 8), device=dev))
     with pytest.raises(ValueError):
         akaze_ladder.akaze_ladder(torch.zeros((1, 8, 8), device=dev), orientation_patch_size=14)
+
+
+def _sampler_args(dev, seed=5, h=96, w=128, k=48):
+    rng = np.random.default_rng(seed)
+    table = ops.BADTable(ops.load_bad_params(512)).to(dev)
+    img = torch.from_numpy(rng.uniform(0, 255, (2, 1, h, w)).astype(np.float32)).to(dev)
+    kp = np.stack([rng.integers(0, h, (2, k)), rng.integers(0, w, (2, k))], -1)
+    inputs = ops.box_sample_inputs(img, torch.from_numpy(kp.astype(np.float32)).to(dev),
+                                   table, ops.angle_moments(img))
+    return (*inputs, table.sample_radius, table.groups, 56, table.max_radius)
+
+
+@pytest.mark.parametrize("skip", [(), ("load",), ("boxsum",), ("store",)])
+def test_sampler_ablation_variants(dev, skip):
+    """The full variant is the production kernel, bit for bit; 'boxsum' is
+    its plain definition (radius 0), bit for bit; 'load' gives finite
+    samples; 'store' leaves the output buffer as it was."""
+    args = _sampler_args(dev)
+    out = torch.full(args[3].shape, -7.0, device=dev)
+    reset_launch_counts()
+    got = sparse_sampler.box_sample_ablated(*args, skip=skip, out=out)
+    torch.cuda.synchronize()
+    assert got is out
+    assert launch_counts()["sparse_sampler_ablate"] == 1
+    assert launch_counts()["sparse_sampler"] == 0
+    if skip == ():
+        assert torch.equal(got, sparse_sampler.box_sample(*args))
+        assert torch.equal(got, sparse_sampler.box_sample_plain(*args))
+    elif skip == ("boxsum",):
+        plain = sparse_sampler.box_sample_ablated(*(t.cpu() if torch.is_tensor(t) else t
+                                                    for t in args), skip=skip)
+        assert torch.equal(got.cpu(), plain)
+    elif skip == ("load",):
+        assert bool(torch.isfinite(got).all())
+    else:
+        assert bool((got == -7.0).all())
+
+
+def test_dense_matcher_launches_and_oriented_map(dev):
+    rng = np.random.default_rng(4)
+    imgs = [torch.from_numpy(rng.uniform(0, 255, (1, 1, 120, 160)).astype(np.float32)).to(dev)
+            for _ in range(2)]
+    fn = models.build("shi_tomasi_bad_sinkhorn_extraction", max_keypoints=128,
+                      max_matches=64, device=dev)
+    reset_launch_counts()
+    out = fn(*imgs)
+    torch.cuda.synchronize()
+    assert launch_counts() == {"select_frontend": 1, "sparse_sampler": 1, "sinkhorn": 1,
+                               "detect_frontend": 0, "akaze_ladder": 0,
+                               "sparse_sampler_ablate": 0}
+    assert out[0].shape == (1, 64, 2) and out[0].is_cuda
+    table = ops.BADTable(ops.load_bad_params(256)).to(dev)
+    theta = ops.angle_estimation(imgs[0])
+    reset_launch_counts()
+    tiled = ops.dense_bad(imgs[0], table, orientation=theta)
+    assert launch_counts()["sparse_sampler"] >= 1
+    gather = ops.dense_bad(imgs[0], table, orientation=theta, oriented_route="gather")
+    assert tiled.shape == (1, 256, 120, 160)
+    assert (tiled - gather).abs().max().item() <= 2e-3

@@ -13,6 +13,8 @@ condition ~1e6 (each moves by 1e-3..1e-2 in either library) before the
 inlier refit.
 """
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -148,7 +150,7 @@ def test_match_extraction_passes_k_inv_through(scene):
     FLAGSHIP, AKAZE, "sinkhorn", "essential_matrix_estimator"])
 def test_registry_defaults_match_jax(name):
     spec, jspec = models.get(name), jax_models.get(name)
-    assert spec.defaults == jspec.defaults
+    assert dataclasses.asdict(spec.defaults) == dataclasses.asdict(jspec.defaults)
     assert spec.takes_k_inv == jspec.takes_k_inv
 
 

@@ -8,6 +8,7 @@ keypoint, the compare falls back to the permutation-aware rule of
 on the common keypoints). P agrees within 5e-3 there.
 """
 
+import dataclasses
 import subprocess
 import sys
 from pathlib import Path
@@ -96,7 +97,8 @@ def test_flagship_extraction_matches_jax(gray_image_pair, jax_out):
 
 @pytest.mark.parametrize("name", [NAME, NAME + "_extraction"])
 def test_registry_defaults_match_jax(name):
-    assert models.get(name).defaults == jax_models.get(name).defaults
+    assert dataclasses.asdict(models.get(name).defaults) == \
+        dataclasses.asdict(jax_models.get(name).defaults)
     assert models.get(name).defaults.block_size == 5
 
 
@@ -112,7 +114,11 @@ def test_port_imports_no_jax():
             "onnx_image_processing_tpu_torch.tools.profile_paths, "
             "onnx_image_processing_tpu_torch.geometry, "
             "onnx_image_processing_tpu_torch.models.streaming, "
-            "onnx_image_processing_tpu_torch.cli.visual_odometry; "
+            "onnx_image_processing_tpu_torch.cli.visual_odometry, "
+            "onnx_image_processing_tpu_torch.cli.feature_detection, "
+            "onnx_image_processing_tpu_torch.cli.image_matching, "
+            "onnx_image_processing_tpu_torch.cli.image_matching_extraction, "
+            "onnx_image_processing_tpu_torch.tools.ablate_sampler; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')); "
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120,
@@ -127,7 +133,7 @@ def test_launch_counters_stay_zero_on_cpu(gray_image_pair):
     fn(torch.from_numpy(img1), torch.from_numpy(img2))
     counts = launch_counts()
     assert set(counts) == {"select_frontend", "sparse_sampler", "sinkhorn",
-                           "detect_frontend", "akaze_ladder"}
+                           "detect_frontend", "akaze_ladder", "sparse_sampler_ablate"}
     assert all(c == 0 for c in counts.values()), counts
 
 
@@ -142,12 +148,15 @@ def test_inputs_on_another_device_raise(gray_image_pair):
 
 
 def test_unported_options_raise(gray_image_pair):
-    """Approximate top-k and the dense family stay unported; the L1 cost and
-    the essential pipelines now build and run."""
+    """Approximate top-k and the auxiliary detectors (FAST, DoG) stay
+    unported; the L1 cost, the essential pipelines and the dense family now
+    build and run."""
     with pytest.raises(NotImplementedError):
         models.build(NAME, topk_mode="approx", device="cpu")
-    with pytest.raises(KeyError, match="unknown pipeline"):
-        models.build("shi_tomasi_bad_sinkhorn", device="cpu")
+    for name in ("fast", "dog", "dog_with_score", "voxel_downsampling"):
+        with pytest.raises(KeyError, match="unknown pipeline"):
+            models.build(name, device="cpu")
+    assert models.build("shi_tomasi_bad_sinkhorn", device="cpu").cfg.max_keypoints == 1024
     img1, img2 = (torch.from_numpy(i) for i in gray_image_pair)
     k1, k2, p = models.build(NAME, max_keypoints=32, distance_type="l1", epsilon=2.0,
                              device="cpu")(img1, img2)

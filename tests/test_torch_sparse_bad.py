@@ -138,3 +138,43 @@ def test_sparse_bad_small_image_and_unoriented(table, jax_params):
     with pytest.raises(ValueError):
         tbad.sparse_bad(torch.from_numpy(img), torch.from_numpy(kp), table,
                         sampling_mode="cubic")
+
+
+@pytest.mark.parametrize("skip", [(), ("boxsum",)])
+def test_box_sample_ablated_cpu_branches(skip, table):
+    """The ablation wrapper on a CPU tensor: the full variant is the plain
+    sampler; without box sums each sample is its box's centre cell."""
+    rng = np.random.default_rng(31)
+    b, k, h, w = 2, 16, 80, 100
+    s = table.off_y.shape[0]
+    img = rng.uniform(0, 255, (b, h + 2 * R_MAX, w + 2 * R_MAX)).astype(np.float32)
+    sy = (rng.integers(0, h - PS + 1, (b, k)) // 8 * 8).astype(np.int32)
+    sx = rng.integers(0, w - PS + 1, (b, k)).astype(np.int32)
+    ly = rng.uniform(0, PS - 1, (b, k, s)).astype(np.float32)
+    lx = rng.uniform(0, PS - 1, (b, k, s)).astype(np.float32)
+    args = (torch.from_numpy(img), torch.from_numpy(sy), torch.from_numpy(sx),
+            torch.from_numpy(ly), torch.from_numpy(lx), table.sample_radius,
+            table.groups, PS, R_MAX)
+    out = torch.full((b, k, s), -7.0)
+    got = sparse_sampler.box_sample_ablated(*args, skip=skip, out=out)
+    assert got is out
+    if not skip:
+        assert torch.equal(got, sparse_sampler.box_sample(*args))
+    else:
+        iy = np.rint(ly).astype(np.int64) + sy[..., None] + R_MAX
+        ix = np.rint(lx).astype(np.int64) + sx[..., None] + R_MAX
+        want = img[np.arange(b)[:, None, None], iy, ix]
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_box_sample_ablated_rejects_what_it_cannot_run(table):
+    img = torch.zeros((1, 70, 70))
+    args = (img, torch.zeros((1, 1), dtype=torch.int32), torch.zeros((1, 1), dtype=torch.int32),
+            torch.zeros((1, 1, 805)), torch.zeros((1, 1, 805)), table.sample_radius,
+            table.groups, PS, R_MAX)
+    with pytest.raises(ValueError, match="unknown stages"):
+        sparse_sampler.box_sample_ablated(*args, skip=("roll",))
+    for skip in (("load",), ("store",), ("boxsum", "store")):
+        with pytest.raises(ValueError, match="no plain version"):
+            sparse_sampler.box_sample_ablated(*args, skip=skip)
+    assert set(sparse_sampler.STAGES) == {"load", "boxsum", "store"}

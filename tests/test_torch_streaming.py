@@ -3,6 +3,7 @@ the two-image module bit for bit on the CPU for every ported streaming name
 and its ``_extraction`` variant, and agrees with JAX's streaming split at the
 flagship's tolerances (keypoints and matched coordinates equal, P and match
 scores within 5e-3, filter masks equal, E within 1e-3 unit norm up to sign).
+All seven of JAX's streaming names are ported, the dense matcher's too.
 Scene: ``test_torch_essential.parallax_pair``; AKAZE at 32 keypoints, the
 rest at 64, to keep the CPU ladder cheap.
 """
@@ -19,7 +20,7 @@ from test_torch_geometry import _unit_diff
 
 P_ATOL = 5e-3
 E_ATOL = 1e-3
-PORTED = sorted(set(jax_models.streaming_names()) - {"shi_tomasi_bad_sinkhorn"})
+PORTED = sorted(jax_models.streaming_names())
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -53,9 +54,10 @@ def _assert_same(a, b):
 
 def test_ported_streaming_names():
     assert models.streaming_names() == PORTED
-    assert len(PORTED) == 6
+    assert len(PORTED) == 7
     assert models.supports_streaming("akaze_sparse_bad_sinkhorn_essential_matrix_extraction")
-    assert not models.supports_streaming("shi_tomasi_bad_sinkhorn")
+    assert models.supports_streaming("shi_tomasi_bad_sinkhorn_extraction")
+    assert not models.supports_streaming("shi_tomasi_bad")
     assert not models.supports_streaming("sinkhorn")
 
 
@@ -135,8 +137,8 @@ def test_streaming_essential_rejects_batched_features(scene):
 
 
 @pytest.mark.parametrize("name,message", [
-    ("shi_tomasi_bad_sinkhorn", "dense family"),
-    ("shi_tomasi_bad_sinkhorn_extraction", "dense family"),
+    ("shi_tomasi_bad", "no streaming split"),
+    ("fast", "no streaming split"),
     ("shi_tomasi", "no streaming split"),
     ("sinkhorn", "no streaming split")])
 def test_streaming_unknown_or_unported_name_raises(name, message):

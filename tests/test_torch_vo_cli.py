@@ -13,9 +13,9 @@ import pytest
 import torch
 from PIL import Image
 
-from onnx_image_processing_tpu.vo import Trajectory
 from onnx_image_processing_tpu_torch import models
 from onnx_image_processing_tpu_torch.cli import visual_odometry as vo
+from onnx_image_processing_tpu_torch.vo import Trajectory
 
 ESSENTIAL = "shi_tomasi_angle_sparse_bad_sinkhorn_essential_matrix"
 COMMON = ["--height", "120", "--width", "160", "--fx", "120", "--skip-frames", "0",
@@ -84,7 +84,7 @@ def test_essential_model_writes_trajectory_and_plot(tmp_path):
 def test_no_streaming_gives_the_same_matches(tmp_path, name, extra):
     """On the first frame pair the two-image matcher (``--no-streaming``)
     and the streaming split give the same matches, bit for bit."""
-    from onnx_image_processing_tpu.cli.common import load_image_from_array
+    from onnx_image_processing_tpu_torch.cli.common import load_image_from_array
     import cv2
 
     frames = _pan(tmp_path, 2, 10, seed=2)
