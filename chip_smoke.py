@@ -17,7 +17,10 @@ Phases (any failed check raises; nothing falls back to the CPU):
    orientation and AKAZE's 1024 with its dense orientation, S=805 samples;
    Sinkhorn at 513x513 and 1025x1025; the detect frontend at block 5 /
    NMS 5 with and without moments; the AKAZE ladder at its defaults): max
-   error and median ms of both. The sampler's stage ablation at the
+   error and median ms of both; each kernel's device ms (a CUDA graph of 20
+   calls replayed, per call) and device launches per call (a trace), the
+   Sinkhorn kernel at 513 and 1025, the sampler
+   also in the dense matcher's bilinear mode. The sampler's stage ablation at the
    flagship's inputs (full = the sampler kernel = its plain version, bit for
    bit; no box sums = its plain definition, bit for bit; no load finite; no
    store leaves the buffer untouched), and the sampler in bilinear mode at
@@ -57,9 +60,10 @@ Phases (any failed check raises; nothing falls back to the CPU):
 
 The last two lines are a JSON object of per-kernel results (each with its
 launches on the paths, launches per call of its path, error against its
-plain version, ms, plain ms, the card's bound for the same work and what
-bounds it, and ``library_ms``: null, no single PyTorch call computes any of
-them) and ``{"ok": true, "device": {...}}``.
+plain version, ms, plain ms, device ms and device launches per call, the
+card's bound for the same work and what bounds it, and ``library_ms``:
+null, no single PyTorch call computes any of them) and
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -713,7 +717,12 @@ def main() -> None:
         _build, akaze_ladder, detect_frontend, launch_counts, reset_launch_counts,
         select_frontend, sinkhorn_kernel, sparse_sampler)
     from onnx_image_processing_tpu_torch.tools import ablate_sampler
-    from onnx_image_processing_tpu_torch.tools.ablate_sampler import cuda_ms
+    from onnx_image_processing_tpu_torch.tools.ablate_sampler import cuda_ms, graph_ms
+    from onnx_image_processing_tpu_torch.tools.kernel_times import device_launches
+
+    def device(fn) -> dict:
+        """The kernel alone: ms from a CUDA-graph replay, launches from a trace."""
+        return {"device_ms": graph_ms(fn), "device_launches_per_call": device_launches(fn)}
     from onnx_image_processing_tpu_torch.models.akaze_family import akaze_detect_cfg
     from onnx_image_processing_tpu_torch.models.shi_tomasi_family import _sparse_detect_describe
 
@@ -762,6 +771,7 @@ def main() -> None:
         "max_abs_err": select_err,
         "ms": cuda_ms(lambda: select_frontend.nms_block_reduce(scores, *sel_args)),
         "plain_ms": cuda_ms(lambda: select_frontend.nms_block_reduce_plain(scores, *sel_args)),
+        **device(lambda: select_frontend.nms_block_reduce(scores, *sel_args)),
         # Separable window max (2r+1 compares per axis), then the NMS,
         # threshold and border tests and the block max: ~4 more per pixel.
         "bound": bound(nbytes(scores, bm_k, bi_k),
@@ -796,6 +806,7 @@ def main() -> None:
         "max_abs_err": sampler_err,
         "ms": cuda_ms(lambda: sparse_sampler.box_sample(*smp_args)),
         "plain_ms": cuda_ms(lambda: sparse_sampler.box_sample_plain(*smp_args)),
+        **device(lambda: sparse_sampler.box_sample(*smp_args)),
         "bound": bound(nbytes(*smp_args[:6], smp_args[3]),
                        sampler_ops(*smp_args[3].shape[:2], smp_args[5])),
     }
@@ -834,6 +845,8 @@ def main() -> None:
           f"plain {cuda_ms(lambda: sparse_sampler.box_sample_plain(*d_args, bilinear=True)):.4f} ms")
     check(err <= SAMPLER_ATOL, f"sparse_sampler dense bilinear error {err} > {SAMPLER_ATOL}")
     results["sparse_sampler"]["max_abs_err"] = max(sampler_err, err)
+    results["sparse_sampler"]["device_ms_dense_bilinear"] = graph_ms(
+        lambda: sparse_sampler.box_sample(*d_args, bilinear=True))
 
     desc = ops.sparse_bad(both, kpts, table, orientation_mm=mm, binarize=cfg.binarize,
                           soft_binarize=cfg.soft_binarize, temperature=cfg.temperature)
@@ -841,6 +854,7 @@ def main() -> None:
                                 binarize=acfg.binarize, soft_binarize=acfg.soft_binarize,
                                 temperature=acfg.temperature)
     sinkhorn_err = 0.0
+    sinkhorn_device = {}
     for label, d, c in (("flagship", desc, cfg), ("AKAZE", akaze_desc, acfg)):
         ls, lmu, lnu = ops.sinkhorn_inputs(d[:1], d[1:], c.epsilon, c.unused_score)
         iters = c.sinkhorn_iterations
@@ -857,6 +871,9 @@ def main() -> None:
         check(err <= SINKHORN_ATOL, f"sinkhorn {label} error {err} > {SINKHORN_ATOL}")
         check(col_err <= MARGINAL_ATOL, f"sinkhorn {label} column sums off by {col_err}")
         sinkhorn_err = max(sinkhorn_err, err)
+        n1, m1 = ls.shape[1:]
+        print(f"sinkhorn {label}: {sinkhorn_kernel.device_plan(n1, m1, dev)}")
+        sinkhorn_device[label] = graph_ms(lambda: sinkhorn_kernel.sinkhorn_core(ls, lmu, lnu, iters))
         if label == "flagship":
             sk_args = (ls, lmu, lnu, iters)
         else:
@@ -867,6 +884,8 @@ def main() -> None:
         "max_abs_err": sinkhorn_err,
         "ms": cuda_ms(lambda: sinkhorn_kernel.sinkhorn_core(*sk_args)),
         "plain_ms": cuda_ms(lambda: sinkhorn_kernel.sinkhorn_core_plain(*sk_args)),
+        **device(lambda: sinkhorn_kernel.sinkhorn_core(*sk_args)),
+        "device_ms_1025": sinkhorn_device["AKAZE"],
         # Each sweep: max, subtract, exp, add per entry (a row LSE, then a
         # column LSE), 20 iterations; then one add and exp per entry.
         "bound": bound(nbytes(*sk_args[:3], sk_out),
@@ -895,6 +914,7 @@ def main() -> None:
         "max_abs_err": detect_err,
         "ms": cuda_ms(lambda: detect_frontend.detect_frontend(both, *df_args)),
         "plain_ms": cuda_ms(lambda: detect_frontend.detect_frontend_plain(both, *df_args)),
+        **device(lambda: detect_frontend.detect_frontend(both, *df_args)),
         # Per pixel: two separable Sobel derivatives (24), three products,
         # three separable box sums (6 b), the score (8), the NMS window
         # (2 (2r+1) + 2) and two separable moments (8 p).
@@ -921,6 +941,7 @@ def main() -> None:
         "max_abs_err": max(errs),
         "ms": cuda_ms(lambda: akaze_ladder.akaze_ladder(both_hw, *lad_args)),
         "plain_ms": cuda_ms(lambda: akaze_ladder.akaze_ladder_plain(both_hw, *lad_args)),
+        **device(lambda: akaze_ladder.akaze_ladder(both_hw, *lad_args)),
         # Per pixel and scale: each FED step ~25 (gradients, conductance,
         # four fluxes, update), the Hessian score 13, its NMS window
         # 2 nms_size, the two separable moments 8 p.
@@ -1010,6 +1031,9 @@ def main() -> None:
         "max_abs_err": (full - sparse_sampler.box_sample_plain(*abl_args)).abs().max().item(),
         "ms": lines[0]["ms"],
         "plain_ms": cuda_ms(lambda: sparse_sampler.box_sample_plain(*abl_args)),
+        "device_ms": lines[0]["device_ms"],
+        "device_launches_per_call": device_launches(
+            lambda: sparse_sampler.box_sample_ablated(*abl_args)),
         "bound": bound(nbytes(*abl_args[:6], abl_args[3]),
                        sampler_ops(*abl_args[3].shape[:2], abl_args[5])),
     }
@@ -1034,6 +1058,7 @@ def main() -> None:
             "launches": launches[name],
             "launches_per_call": ablate_per_call if name == ABLATE else paths[path][name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            **{k: v for k, v in r.items() if k.startswith("device")},
             **r["bound"], "library_ms": None})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

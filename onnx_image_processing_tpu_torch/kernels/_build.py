@@ -50,6 +50,7 @@ _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 _result: BuildResult | None = None
 _constants: dict[tuple, torch.Tensor] = {}
+_entries: dict[str, tuple] = {}
 
 
 def _nvcc() -> str:
@@ -129,11 +130,17 @@ def library() -> ctypes.CDLL:
 
 def entry(name: str, argtypes: list) -> "ctypes._CFuncPtr":
     """A C entry point of the library, typed: every entry returns an int
-    error code (``cudaGetLastError()`` after its launches)."""
-    fn = getattr(library(), name)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
-    return fn
+    error code (``cudaGetLastError()`` after its launches). Typed once and
+    kept, so a launch does not pay for setting its types again."""
+    cached = _entries.get(name)
+    if cached is None:
+        fn = getattr(library(), name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        cached = _entries[name] = (fn, tuple(argtypes))
+    if cached[1] != tuple(argtypes):
+        raise TypeError(f"{name} was typed {cached[1]}, now asked as {tuple(argtypes)}")
+    return cached[0]
 
 
 def check(err: int, what: str) -> None:

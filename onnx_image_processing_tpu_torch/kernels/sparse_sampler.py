@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from . import LaunchCounter, _build, use_kernel
@@ -25,6 +26,10 @@ ABLATE_LAUNCHES = LaunchCounter("sparse_sampler_ablate")
 # Stages of the CUDA kernel that the ablation can skip, and their bits in
 # the kernel's skip mask (csrc/sparse_sampler.cu).
 STAGES = {"load": 1, "boxsum": 2, "store": 4}
+WARPS = 8   # warps per CTA of the kernel (kWarps); sampler_plan deals to them
+_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+_ABLATE_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p]
+_plans: dict[tuple, torch.Tensor] = {}
 
 
 def box_sample_plain(image_padded: torch.Tensor, start_y: torch.Tensor,
@@ -111,11 +116,10 @@ def box_sample(image_padded: torch.Tensor, start_y: torch.Tensor,
         return box_sample_plain(image_padded, start_y, start_x, ly, lx, radius,
                                 groups, ps, r_max, bilinear)
     out = _checked_output(image_padded, start_y, start_x, ly, lx, radius, ps, r_max)
-    fn = _build.entry("oip_sparse_sampler", [ctypes.c_void_p] * 7
-                      + [ctypes.c_int] * 8 + [ctypes.c_void_p])
-    err = fn(*_pointers(image_padded, start_y, start_x, ly, lx, radius, out),
-             *_dims(image_padded, ly), ps, r_max, int(bilinear),
-             _build.stream(image_padded))
+    plan = _device_plan(groups, ly.shape[2], image_padded.device)
+    fn = _build.entry("oip_sparse_sampler", _ARGTYPES)
+    err = fn(*_pointers(image_padded, start_y, start_x, ly, lx, plan, out),
+             *_dims(image_padded, ly), ps, r_max, int(bilinear), _build.stream(image_padded))
     _build.check(err, "sparse_sampler launch")
     LAUNCHES.count += 1
     return out
@@ -162,18 +166,54 @@ def box_sample_ablated(image_padded: torch.Tensor, start_y: torch.Tensor,
         raise ValueError(f"out must be a contiguous {tuple(checked.shape)} float32 "
                          f"tensor on {image_padded.device}")
     mask = sum(STAGES[name] for name in set(skip))
-    fn = _build.entry("oip_sparse_sampler_ablate", [ctypes.c_void_p] * 7
-                      + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p])
-    err = fn(*_pointers(image_padded, start_y, start_x, ly, lx, radius, out),
-             *_dims(image_padded, ly), ps, r_max, int(bilinear), mask,
-             float("nan"), _build.stream(image_padded))
+    plan = _device_plan(groups, ly.shape[2], image_padded.device)
+    fn = _build.entry("oip_sparse_sampler_ablate", _ABLATE_ARGTYPES)
+    err = fn(*_pointers(image_padded, start_y, start_x, ly, lx, plan, out),
+             *_dims(image_padded, ly), ps, r_max, int(bilinear), mask, float("nan"),
+             _build.stream(image_padded))
     _build.check(err, "sparse_sampler_ablate launch")
     ABLATE_LAUNCHES.count += 1
     return out
 
 
+def sampler_plan(groups: tuple) -> np.ndarray:
+    """The kernel's work plan: how the samples of one keypoint are dealt to
+    the :data:`WARPS` warps of its CTA. Needs no card.
+
+    A task is up to 32 consecutive samples of one radius group, one a lane,
+    so no warp straddles two radii. Tasks go largest box first, each to the
+    warp with the least work so far (the lowest such warp on a tie); a
+    task's work is its box's (2r+1)^2 loads. Returns int32: the
+    ``WARPS + 1`` offsets of each
+    warp's tasks, then the tasks as (radius, first sample, count) triples.
+    """
+    tasks = [(r, a, min(32, hi - a)) for (r, lo, hi) in groups for a in range(lo, hi, 32)]
+    load = [0] * WARPS
+    dealt: list[list] = [[] for _ in range(WARPS)]
+    for task in sorted(tasks, key=lambda t: -t[0]):   # stable: ties keep their order
+        w = load.index(min(load))
+        dealt[w].append(task)
+        load[w] += (2 * task[0] + 1) ** 2
+    offsets = np.cumsum([0] + [len(d) for d in dealt])
+    flat = [v for d in dealt for task in d for v in task]
+    return np.concatenate([offsets, flat]).astype(np.int32)
+
+
+def _device_plan(groups: tuple, s: int, device: torch.device) -> torch.Tensor:
+    """:func:`sampler_plan` on ``device``, made and copied there once;
+    ``groups`` must tile the sample axis 0..s."""
+    key = (groups, s, str(device))
+    plan = _plans.get(key)
+    if plan is None:
+        bounds = [0] + [v for (_, lo, hi) in groups for v in (lo, hi)] + [s]
+        if bounds[0::2] != bounds[1::2]:
+            raise ValueError(f"groups {groups} do not tile the {s} samples")
+        plan = _plans[key] = torch.from_numpy(sampler_plan(groups)).to(device)
+    return plan
+
+
 def _pointers(*tensors: torch.Tensor) -> list:
-    return [_build.ptr(t) for t in tensors]
+    return [t.data_ptr() for t in tensors]
 
 
 def _dims(image_padded: torch.Tensor, ly: torch.Tensor) -> tuple:

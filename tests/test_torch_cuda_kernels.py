@@ -65,6 +65,108 @@ def test_sinkhorn_kernel_matches_plain(dev, n, m, eps):
     torch.testing.assert_close(p_k, p_p, rtol=1e-5, atol=1e-6)
 
 
+def _sinkhorn_case(dev, n, m, seed, b=2):
+    """Log-scores of an (n+1) x (m+1) problem, B=b, with row n // 2 at -1e4
+    so that its exps underflow as a dustbin row's can."""
+    rng = np.random.default_rng(seed)
+    d1 = torch.from_numpy(rng.normal(0, 0.5, (b, n, 64)).astype(np.float32)).to(dev)
+    d2 = torch.from_numpy(rng.normal(0, 0.5, (b, m, 64)).astype(np.float32)).to(dev)
+    ls, lmu, lnu = ops.sinkhorn_inputs(d1, d2, 0.05)
+    ls[:, n // 2, :] = -1e4
+    return ls, lmu, lnu
+
+
+@pytest.mark.parametrize("iters", [1, 20])
+@pytest.mark.parametrize("n,m", [(512, 512), (1024, 1024), (64, 128), (128, 64)])
+def test_sinkhorn_kernel_one_launch(dev, n, m, iters):
+    """One launch per call, B=2 (two bands of CTAs): the flagship's 513 x
+    513, the 1025 x 1025 of the AKAZE, dense and VO paths, and the ragged
+    65 x 129 and 129 x 65 (CTAs that own columns but no rows, and the
+    reverse); deterministic from run to run."""
+    ls, lmu, lnu = _sinkhorn_case(dev, n, m, n + m + iters)
+    reset_launch_counts()
+    p_k = sinkhorn_kernel.sinkhorn_core(ls, lmu, lnu, iters)
+    torch.cuda.synchronize()
+    assert launch_counts()["sinkhorn"] == 1
+    p_p = sinkhorn_kernel.sinkhorn_core_plain(ls, lmu, lnu, iters)
+    assert (p_k - p_p).abs().max().item() <= 1e-5
+    assert torch.equal(p_k, sinkhorn_kernel.sinkhorn_core(ls, lmu, lnu, iters))
+
+
+@pytest.mark.parametrize("n,m", [(64, 128), (128, 64)])
+def test_sinkhorn_kernel_ragged_repeated(dev, n, m):
+    """The ragged shapes at B=1, 20 sweeps, 200 calls in a row: a CTA that
+    owns rows but no columns (or the reverse) must never find a potential
+    rewritten before it read it (the kernel traps after a spin that no real
+    wait reaches), and every call gives the same P."""
+    ls, lmu, lnu = _sinkhorn_case(dev, n, m, n * m, b=1)
+    first = sinkhorn_kernel.sinkhorn_core(ls, lmu, lnu, 20)
+    assert (first - sinkhorn_kernel.sinkhorn_core_plain(ls, lmu, lnu, 20)).abs().max().item() <= 1e-5
+    outs = [sinkhorn_kernel.sinkhorn_core(ls, lmu, lnu, 20) for _ in range(200)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(first, p) for p in outs)
+
+
+@pytest.mark.parametrize("n,m", [(4096, 4096), (4096, 2048)])
+def test_sinkhorn_kernel_partly_resident(dev, n, m):
+    """Past what shared memory holds, the rows and columns that do not fit
+    are read from device memory on each sweep (strided for a column)."""
+    ls, lmu, lnu = _sinkhorn_case(dev, n, m, n + m, b=1)
+    plan = sinkhorn_kernel.device_plan(n + 1, m + 1, dev)
+    assert plan.res_rows < plan.lines and plan.res_cols < plan.lines
+    p_k = sinkhorn_kernel.sinkhorn_core(ls, lmu, lnu, 20)
+    p_p = sinkhorn_kernel.sinkhorn_core_plain(ls, lmu, lnu, 20)
+    assert (p_k - p_p).abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("n,b", [(512, 8), (1024, 3), (1024, 8)])
+def test_sinkhorn_kernel_batch_bands(dev, n, b):
+    """B entries in one launch, side by side on bands of CTAs (4 at 513, 2
+    at 1025), the rest in later rounds of the same launch."""
+    ls, lmu, lnu = _sinkhorn_case(dev, n, n, n + b, b=b)
+    plan = sinkhorn_kernel.device_plan(n + 1, n + 1, dev, b)
+    assert 1 < plan.groups < b
+    reset_launch_counts()
+    p_k = sinkhorn_kernel.sinkhorn_core(ls, lmu, lnu, 20)
+    assert launch_counts()["sinkhorn"] == 1
+    p_p = sinkhorn_kernel.sinkhorn_core_plain(ls, lmu, lnu, 20)
+    assert (p_k - p_p).abs().max().item() <= 1e-5
+
+
+def _edge_sampler_args(dev, seed=9, h=90, w=110, k=16):
+    """Raw sampler inputs whose windows are clamped at all four edges of the
+    padded image (origins below 0 and past the last fitting one), with
+    sample coordinates on the window's edges and inside it."""
+    rng = np.random.default_rng(seed)
+    table = ops.BADTable(ops.load_bad_params(512)).to(dev)
+    r, ps = table.max_radius, 56
+    hp, wp = h + 2 * r, w + 2 * r
+    psi = ps + 2 * r
+    img = rng.uniform(0, 255, (2, hp, wp)).astype(np.float32)
+    sy = rng.choice([-9, 0, hp - psi, hp - psi + 7], (2, k)).astype(np.int32)
+    sx = rng.choice([-3, 0, wp - psi, wp - psi + 5], (2, k)).astype(np.int32)
+    s = table.off_y.shape[0]
+    ly = rng.uniform(-0.5, ps - 0.5, (2, k, s)).astype(np.float32)
+    lx = rng.uniform(-0.5, ps - 0.5, (2, k, s)).astype(np.float32)
+    ly[:, ::2, ::3], lx[:, 1::2, ::3] = 0.0, ps - 1.0
+    tensors = [torch.from_numpy(a).to(dev) for a in (img, sy, sx, ly, lx)]
+    return (*tensors, table.sample_radius, table.groups, ps, r)
+
+
+@pytest.mark.parametrize("bilinear", [False, True])
+def test_sampler_kernel_edges_and_radius_groups(dev, bilinear):
+    """Every radius group 1..7, windows clamped at all four edges: nearest
+    mode bit-identical to the plain version, bilinear within 1e-3."""
+    args = _edge_sampler_args(dev)
+    assert [g[0] for g in args[6]] == list(range(1, 8))
+    out_k = sparse_sampler.box_sample(*args, bilinear=bilinear)
+    out_p = sparse_sampler.box_sample_plain(*args, bilinear=bilinear)
+    if bilinear:
+        assert (out_k - out_p).abs().max().item() <= 1e-3
+    else:
+        assert torch.equal(out_k, out_p)
+
+
 def test_flagship_launches_each_kernel(dev):
     rng = np.random.default_rng(0)
     imgs = [torch.from_numpy(rng.uniform(0, 255, (1, 1, 120, 160)).astype(np.float32)).to(dev)
