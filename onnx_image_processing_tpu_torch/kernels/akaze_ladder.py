@@ -7,11 +7,18 @@ Port of ``onnx_image_processing_tpu/kernels/akaze_ladder.py``
 the port of ``akaze_ladder_reference``, built from ``ops/akaze.py``. The
 kernel rounds every multiply and add on its own, in the plain version's
 order, so on the card the two agree bit for bit.
+
+The kernel has two routes, picked by :func:`ladder_plan` from the shape:
+one cooperative launch whose CTAs each keep a tile of the diffusion state
+in shared memory for the whole ladder (where the tiles fit the card's
+shared memory), or one launch per FED step and per scale with the state
+in device memory.
 """
 
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -23,6 +30,120 @@ from ..ops.orientation import angle_moments
 
 LAUNCHES = LaunchCounter("akaze_ladder")
 MAX_RADIUS = 15  # the kernel's tiles fit an NMS radius and moment half-width up to 15
+SMEM_LIMIT = 232_448     # shared memory one CTA can use on Hopper (bytes)
+H100_SMS = 132           # SMs of an H100 SXM, the plan's default
+_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+             + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+_RESIDENT_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+                      + [ctypes.c_float, ctypes.c_float] + [ctypes.c_int] * 6
+                      + [ctypes.c_void_p])
+_resident: dict[tuple, tuple] = {}   # (b, h, w, nr, half, device) -> (plan, CTAs the card holds)
+
+
+@dataclass(frozen=True)
+class LadderPlan:
+    """The kernel's route. ``"resident"``: one cooperative launch of
+    b x ny x nx CTAs, CTA (ty, tx) of an image keeping tile (ty, tx) of its
+    state, with a ``halo`` pixels deep, in ``smem_bytes`` of shared memory,
+    and computing each scale's outputs in chunks of ``out_rows`` rows.
+    ``"global"``: one launch per FED step and per scale (ny = nx = 0)."""
+
+    route: str
+    ny: int
+    nx: int
+    halo: int
+    out_rows: int
+    smem_bytes: int
+
+    def tiles(self, h: int, w: int) -> list[tuple[int, int, int, int]]:
+        """``(y0, y1, x0, x1)`` of every tile of one image (balanced spans)."""
+        return [(ty * h // self.ny, (ty + 1) * h // self.ny,
+                 tx * w // self.nx, (tx + 1) * w // self.nx)
+                for ty in range(self.ny) for tx in range(self.nx)]
+
+
+def ladder_halo(nms_radius: int, half: int) -> int:
+    """Halo of L a tile keeps: the FED step's 2, the Hessian response's
+    nms_radius + 1 and the moments' half-width."""
+    return max(2, nms_radius + 1, half)
+
+
+def _resident_floats(th: int, tw: int, nms_radius: int, half: int, oc: int) -> int:
+    # csrc/akaze_ladder.cu resident_floats: L with its halo; the fluxes of a
+    # FED step or one chunk of oc rows of the scale outputs, in turn; the taps.
+    hh, nr = ladder_halo(nms_radius, half), nms_radius
+    out = (oc + 2 * nr) * (tw + 2 * nr) + (oc + 2 * nr) * tw + 2 * oc * (tw + 2 * half)
+    return ((th + 2 * hh) * (tw + 2 * hh) + max(2 * (th + 2) * (tw + 2), out)
+            + 2 * (2 * half + 1))
+
+
+def ladder_plan(b: int, h: int, w: int, sms: int = H100_SMS,
+                smem_per_cta: int = SMEM_LIMIT, nms_radius: int = 2,
+                half: int = 7) -> LadderPlan:
+    """The kernel's route for ``b`` images of ``h`` x ``w`` on a card with
+    ``sms`` SMs and ``smem_per_cta`` bytes of shared memory a CTA; needs no
+    card.
+
+    Resident when some grid of ny x nx tiles per image fits: at most ``sms``
+    CTAs in all (one per SM, all resident at once), every tile but a sole
+    one along its axis at least the halo deep (a tile's halo then lies in
+    its 8 neighbours), and each tile's shared memory within
+    ``smem_per_cta`` with its scale outputs in chunks of at least
+    ``min(tile rows, 16)`` rows. Of those, the one whose CTAs hold the fewest
+    floats of L with its halo (the per-CTA work), then the most CTAs; its
+    chunks as tall as shared memory allows (a chunk of 4-row groups keeps
+    more threads busy). Else global.
+    """
+    if b < 1 or h < 1 or w < 1:
+        raise ValueError(f"empty ladder input {b}x{h}x{w}")
+    if not (0 <= nms_radius <= MAX_RADIUS and 0 <= half <= MAX_RADIUS):
+        raise ValueError(f"nms radius and moment half-width must be in 0..{MAX_RADIUS}, "
+                         f"got {nms_radius}, {half}")
+    hh = ladder_halo(nms_radius, half)
+    best, best_key = None, None
+    for ny in range(1, min(h, sms // b) + 1):
+        if ny > 1 and h // ny < hh:
+            break
+        for nx in range(1, min(w, sms // (b * ny)) + 1):
+            if nx > 1 and w // nx < hh:
+                break
+            th, tw = -(-h // ny), -(-w // nx)
+            fits = [oc for oc in range(th, min(th, 16) - 1, -1)
+                    if 4 * _resident_floats(th, tw, nms_radius, half, oc) <= smem_per_cta]
+            if not fits:
+                continue
+            key = ((th + 2 * hh) * (tw + 2 * hh), -ny * nx)
+            if best_key is None or key < best_key:
+                smem = 4 * _resident_floats(th, tw, nms_radius, half, fits[0])
+                best, best_key = LadderPlan("resident", ny, nx, hh, fits[0], smem), key
+    return best if best is not None else LadderPlan("global", 0, 0, hh, 0, 0)
+
+
+def device_plan(b: int, h: int, w: int, nms_radius: int, half: int,
+                device: torch.device) -> LadderPlan:
+    """:func:`ladder_plan` for ``device``'s SM count; for the resident route,
+    raises if the card cannot hold all of its CTAs at once, as the
+    cooperative launch needs (asked once per shape and device)."""
+    key = (b, h, w, nms_radius, half, str(device))
+    if key not in _resident:
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        plan = ladder_plan(b, h, w, sms, SMEM_LIMIT, nms_radius, half)
+        resident = 0
+        if plan.route == "resident":
+            fn = _build.entry("oip_akaze_ladder_resident_ctas",
+                              [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)])
+            count = ctypes.c_int(0)
+            with torch.cuda.device(device):
+                _build.check(fn(half, plan.smem_bytes, ctypes.byref(count)),
+                             "akaze_ladder occupancy")
+            resident = count.value
+        _resident[key] = (plan, resident)
+    plan, resident = _resident[key]
+    if plan.route == "resident" and resident < b * plan.ny * plan.nx:
+        raise RuntimeError(f"the card holds {resident} CTAs of the AKAZE ladder kernel at "
+                           f"once; its cooperative launch at {b}x{h}x{w} needs "
+                           f"{b * plan.ny * plan.nx}")
+    return plan
 
 
 def akaze_ladder_plain(image: torch.Tensor, num_scales: int = 3,
@@ -80,19 +201,29 @@ def akaze_ladder(image: torch.Tensor, num_scales: int = 3,
                          f"<= {MAX_RADIUS}, got {nms_radius}, {half}")
     b, h, w = image.shape
     dev = image.device
+    plan = device_plan(b, h, w, nms_radius, half, dev)
     scores, m10, m01 = (torch.empty((b, num_scales, h, w), dtype=torch.float32,
                                     device=dev) for _ in range(3))
+    # The resident route's mirror of the state, or the global route's two
+    # state buffers: (2, B, H, W) either way.
     state = torch.empty((2, b, h, w), dtype=torch.float32, device=dev)
-    taps = _build.constant(np.concatenate(moment_taps(orientation_sigma,
-                                                      orientation_patch_size)), dev)
-    fn = _build.entry("oip_akaze_ladder", [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
-                      + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                         ctypes.c_void_p])
-    err = fn(_build.ptr(image), _build.ptr(taps), _build.ptr(state[0]),
-             _build.ptr(state[1]), _build.ptr(scores), _build.ptr(m10),
-             _build.ptr(m01), b, h, w, int(num_scales), int(diffusion_iterations),
-             float(np.float32(1.0 / (kappa * kappa))), float(threshold),
-             nms_radius, half, _build.stream(image))
+    host_taps = np.concatenate(moment_taps(orientation_sigma, orientation_patch_size))
+    args = (b, h, w, int(num_scales), int(diffusion_iterations),
+            float(np.float32(1.0 / (kappa * kappa))), float(threshold), nms_radius, half)
+    if plan.route == "resident":
+        tags = torch.empty((b, plan.ny, plan.nx), dtype=torch.int32, device=dev)
+        fn = _build.entry("oip_akaze_ladder_resident", _RESIDENT_ARGTYPES)
+        # The taps go by value into the launch's parameters.
+        err = fn(_build.ptr(image), host_taps.ctypes.data_as(ctypes.c_void_p),
+                 _build.ptr(state), _build.ptr(tags),
+                 _build.ptr(scores), _build.ptr(m10), _build.ptr(m01), *args, plan.ny,
+                 plan.nx, plan.out_rows, plan.smem_bytes, _build.stream(image))
+    else:
+        fn = _build.entry("oip_akaze_ladder", _ARGTYPES)
+        taps = _build.constant(host_taps, dev)
+        err = fn(_build.ptr(image), _build.ptr(taps), _build.ptr(state[0]),
+                 _build.ptr(state[1]), _build.ptr(scores), _build.ptr(m10),
+                 _build.ptr(m01), *args, _build.stream(image))
     _build.check(err, "akaze_ladder launch")
     LAUNCHES.count += 1
     return scores, m10, m01

@@ -6,8 +6,8 @@ Every stencil is the zero-padded separable shift-and-add of
 horizontal, then ``* scale``, zero taps skipped. The orientation moments
 are ``ops/orientation.py`` ``angle_moments`` (zero padding, as here). These
 plain functions also make the plain version of the AKAZE ladder kernel
-(``kernels/akaze_ladder.py``), which computes the same per-scale maps in a
-dozen launches on a CUDA tensor.
+(``kernels/akaze_ladder.py``), which computes the same per-scale maps in
+one launch on a CUDA tensor.
 """
 
 from __future__ import annotations

@@ -111,9 +111,10 @@ def nms_select_topk(scores: torch.Tensor, max_keypoints: int,
                     nms_radius: int = 3, topk_mode: str = "block"):
     """NMS + top-k keypoint selection from a raw (B, H, W) score map.
 
-    In block mode the NMS, masks and block reduction run as one pass, the
-    select-frontend kernel on a CUDA tensor and its plain version on a CPU
-    tensor; top-k and decode follow. ``topk_mode="sort"`` is the flat top-k.
+    In block mode the NMS, masks, block reduction, block top-k and decode
+    run as one launch of the select-frontend kernel on a CUDA tensor, and
+    as its plain version on a CPU tensor. ``topk_mode="sort"``, and a map
+    with fewer blocks than ``max_keypoints``, take the flat top-k.
 
     Returns:
         keypoints (B, K, 2) float (y, x); scores (B, K).
@@ -131,9 +132,8 @@ def nms_select_topk(scores: torch.Tensor, max_keypoints: int,
         bs = nms_radius + 1
         use_blocks = -(-h // bs) * -(-w // bs) >= max_keypoints
     if use_blocks:
-        block_max, block_idx = select_frontend.nms_block_reduce(
-            scores, nms_radius, score_threshold, border_margin)
-        return _select_blocks(block_max, block_idx, max_keypoints, w)
+        return select_frontend.nms_select_blocks(scores, nms_radius, max_keypoints,
+                                                 score_threshold, border_margin)
     mask = nms_maxpool(scores, nms_radius)
     return select_topk_keypoints(scores, mask, max_keypoints, score_threshold,
                                  border_margin, nms_radius=None)

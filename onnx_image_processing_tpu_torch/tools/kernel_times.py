@@ -1,4 +1,4 @@
-"""Device times of the Sinkhorn and sampler kernels at the paths' shapes.
+"""Device times of the port's kernels at the paths' shapes.
 
     python -m onnx_image_processing_tpu_torch.tools.kernel_times          # repo root
     cd OLD_CHECKOUT && PYTHONPATH=. python NEW/onnx_image_processing_tpu_torch/tools/kernel_times.py --label old
@@ -18,7 +18,12 @@ Cases (one JSON line each, with the card's name and power limit):
 - ``sampler dense bilinear``: the dense matcher's inputs on
   ``chip_smoke.py``'s pair (2 x 1024 keypoints, margin 0, bilinear);
 - ``oriented dense map``: ``ops.dense_bad`` at 480x640, P=256, with the
-  pair's first image's orientation (7 sampler launches).
+  pair's first image's orientation (7 sampler launches);
+- ``select topk flagship`` / ``select topk AKAZE``: ``ops.nms_select_topk``
+  (NMS, masks, block top-k and decode) on the pair's Shi-Tomasi scores
+  (radius 5, K=512, margin 16) and AKAZE scores (radius 3, K=1024);
+- ``akaze ladder B=2`` / ``akaze ladder B=1``: ``kernels.akaze_ladder.akaze_ladder``
+  at its defaults on the pair and on its first image (a VO frame).
 
 ``device_ms``: a CUDA graph of 20 calls replayed between CUDA events, per
 call (``tools/ablate_sampler.py`` ``graph_ms``); ``ms``: CUDA events around
@@ -41,7 +46,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from onnx_image_processing_tpu_torch import models, ops
-from onnx_image_processing_tpu_torch.kernels import sinkhorn_kernel, sparse_sampler
+from onnx_image_processing_tpu_torch.kernels import akaze_ladder, sinkhorn_kernel, sparse_sampler
 from onnx_image_processing_tpu_torch.tools.ablate_sampler import (ablation_inputs, cuda_ms,
                                                                   graph_ms)
 
@@ -84,6 +89,32 @@ def dense_sampler_args(dev: torch.device):
             56, table.max_radius), both[:1]
 
 
+def select_and_ladder_cases(dev: torch.device) -> list[tuple[str, object]]:
+    """The select top-k and AKAZE ladder calls on ``chip_smoke.py``'s pair."""
+    import chip_smoke
+    from onnx_image_processing_tpu_torch.models.akaze_family import akaze_detect_cfg
+
+    both = torch.cat([torch.from_numpy(a) for a in chip_smoke.bench_pair()]).to(dev)
+    flag = models.build(chip_smoke.FLAGSHIP, device=dev, max_keypoints=chip_smoke.MAX_KEYPOINTS)
+    cfg, margin = flag.cfg, flag.table.max_radius
+    scores = ops.shi_tomasi_score(both, cfg.block_size)[:, 0].contiguous()
+    akaze = models.build(chip_smoke.AKAZE, device=dev)
+    acfg = akaze.cfg
+    a_scores = akaze_detect_cfg(both, acfg)[0][:, 0].contiguous()
+    a_margin = akaze.table.max_radius
+    pair = both[:, 0].contiguous()
+    frame = pair[:1].contiguous()
+    return [
+        ("select topk flagship", lambda: ops.nms_select_topk(
+            scores, cfg.max_keypoints, cfg.score_threshold, margin, nms_radius=cfg.nms_radius)),
+        ("select topk AKAZE", lambda: ops.nms_select_topk(
+            a_scores, acfg.max_keypoints, acfg.score_threshold, a_margin,
+            nms_radius=acfg.nms_radius)),
+        ("akaze ladder B=2", lambda: akaze_ladder.akaze_ladder(pair)),
+        ("akaze ladder B=1", lambda: akaze_ladder.akaze_ladder(frame)),
+    ]
+
+
 def timed(label: str, case: str, fn) -> dict:
     return {"tree": label, "case": case, "device_ms": graph_ms(fn), "ms": cuda_ms(fn),
             "launches": device_launches(fn)}
@@ -115,6 +146,8 @@ def run(label: str) -> list[dict]:
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     lines.append({"tree": label, "case": "oriented dense map", "ms": float(np.median(times))})
+    for case, fn in select_and_ladder_cases(dev):
+        lines.append(timed(label, case, fn))
     return lines
 
 

@@ -39,6 +39,75 @@ def test_select_kernel_bitexact(dev, h, w, r, margin, thr):
         assert torch.equal(bm_k, bm_p) and torch.equal(bi_k, bi_p)
 
 
+def _select_maps(rng, b, h, w):
+    """A random map, a tie map (values k/4) and a signed map, (b, h, w) each."""
+    return [rng.random((b, h, w), dtype=np.float32),
+            (rng.integers(0, 5, (b, h, w)) / 4.0).astype(np.float32),
+            rng.random((b, h, w), dtype=np.float32) - 0.5]
+
+
+@pytest.mark.parametrize("b", [1, 2, 8])
+@pytest.mark.parametrize("h,w,r,margin,thr", [
+    (120, 160, 5, 7, 0.0), (64, 80, 1, 4, 0.0), (123, 217, 3, 8, 0.05),
+    (96, 128, 7, 10, 0.0), (50, 70, 15, 0, -0.2)])
+def test_select_topk_kernel_bitexact(dev, b, h, w, r, margin, thr):
+    """The fused select (block reduce, top-k, decode) equals its plain
+    composition bit for bit, for K from 1 to the whole block grid; one
+    launch per call."""
+    rng = np.random.default_rng(h * w + b)
+    n = -(-h // (r + 1)) * -(-w // (r + 1))
+    for s in _select_maps(rng, b, h, w):
+        s = torch.from_numpy(s).to(dev)
+        for k in sorted({1, min(100, n), n // 2, n - 1, n} - {0}):
+            reset_launch_counts()
+            got = select_frontend.nms_select_blocks(s, r, k, thr, margin)
+            assert launch_counts()["select_frontend"] == 1
+            want = select_frontend.nms_select_blocks_plain(s, r, k, thr, margin)
+            for g, e in zip(got, want):
+                assert torch.equal(g, e), (k, (g != e).sum().item())
+
+
+@pytest.mark.parametrize("b,h,w,r,k", [
+    (2, 240, 320, 1, 19200),   # the sort in device memory (K past 4096 keys)
+    (2, 240, 320, 1, 5000),
+    (1, 480, 640, 1, 1000),    # 76,800 blocks: read from L2, not staged
+    (2, 480, 640, 3, 1024)])   # AKAZE's grid and K
+def test_select_topk_kernel_large(dev, b, h, w, r, k):
+    rng = np.random.default_rng(k + h)
+    for s in _select_maps(rng, b, h, w)[:2]:
+        s = torch.from_numpy(s).to(dev)
+        got = select_frontend.nms_select_blocks(s, r, k, 0.0, 0)
+        want = select_frontend.nms_select_blocks_plain(s, r, k, 0.0, 0)
+        for g, e in zip(got, want):
+            assert torch.equal(g, e)
+
+
+def test_select_topk_kernel_repeats_and_graph_replay(dev):
+    """The ticket counters reset themselves: 50 calls in a row and a CUDA
+    graph of 20 calls replayed twice give the plain result every time."""
+    rng = np.random.default_rng(5)
+    s = torch.from_numpy(rng.random((2, 480, 640), dtype=np.float32)).to(dev)
+    args = (5, 512, 0.0, 16)
+    want = select_frontend.nms_select_blocks_plain(s, *args)
+    outs = [select_frontend.nms_select_blocks(s, *args) for _ in range(50)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(o[0], want[0]) and torch.equal(o[1], want[1]) for o in outs)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        select_frontend.nms_select_blocks(s, *args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = [select_frontend.nms_select_blocks(s, *args) for _ in range(20)]
+    for _ in range(2):
+        for o in captured:
+            o[0].fill_(7.0)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(o[0], want[0]) and torch.equal(o[1], want[1]) for o in captured)
+
+
 @pytest.mark.parametrize("bilinear", [False, True])
 def test_sampler_kernel_matches_plain(dev, bilinear):
     rng = np.random.default_rng(3)
@@ -211,6 +280,36 @@ def test_akaze_ladder_kernel_bitexact(dev, h, w, scales, iters, nms, patch):
     assert (got[0] > 0).any()
 
 
+@pytest.mark.parametrize("b,h,w,route", [
+    (2, 480, 640, "resident"), (1, 480, 640, "resident"), (1, 1080, 1920, "resident"),
+    (2, 1080, 1920, "global"), (2, 5, 300, "resident"), (1, 3, 9, "resident")])
+def test_akaze_ladder_kernel_routes(dev, b, h, w, route):
+    """At the defaults (3 scales of 3 steps, NMS 5, patch 15): the pair and
+    the VO frame at 480x640, one 1080p frame (tiles of one launch), a 1080p
+    pair (state past shared memory: per-step launches), and images
+    shallower than the halo (one row of tiles). Bit-identical to the plain
+    version, and to itself over repeated calls (no neighbour wait hangs or
+    reads a stale halo)."""
+    rng = np.random.default_rng(h * w + b)
+    img = torch.from_numpy(rng.uniform(0, 255, (b, h, w)).astype(np.float32)).to(dev)
+    plan = akaze_ladder.device_plan(b, h, w, 2, 7, dev)
+    assert plan.route == route
+    got = akaze_ladder.akaze_ladder(img)
+    want = akaze_ladder.akaze_ladder_plain(img)
+    for g, e in zip(got, want):
+        assert torch.equal(g, e), (g - e).abs().max().item()
+    again = [akaze_ladder.akaze_ladder(img) for _ in range(20)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(a[i], got[i]) for a in again for i in range(3))
+
+
+def test_akaze_ladder_kernel_one_device_launch(dev):
+    from onnx_image_processing_tpu_torch.tools.kernel_times import device_launches
+
+    img = torch.rand((2, 480, 640), device=dev) * 255
+    assert device_launches(lambda: akaze_ladder.akaze_ladder(img)) == 1
+
+
 @pytest.mark.parametrize("fused", [False, True])
 def test_flagship_fused_detect_launches(dev, fused):
     rng = np.random.default_rng(1)
@@ -258,6 +357,8 @@ def test_kernel_wrappers_validate_inputs(dev):
         akaze_ladder.akaze_ladder(torch.zeros((1, 1, 8, 8), device=dev))
     with pytest.raises(ValueError):
         akaze_ladder.akaze_ladder(torch.zeros((1, 8, 8), device=dev), orientation_patch_size=14)
+    with pytest.raises(ValueError):   # K past the 4 x 4 block grid
+        select_frontend.nms_select_blocks(torch.zeros((1, 8, 8), device=dev), 1, 17)
 
 
 def _sampler_args(dev, seed=5, h=96, w=128, k=48):

@@ -1,9 +1,10 @@
 """The host-side work plans of the port's CUDA kernels, and their C bindings.
 
-The Sinkhorn kernel's launch layout (``sinkhorn_plan``) and the sampler's
-work plan (``sampler_plan``) are plain Python that needs no card, so their
-invariants are held here; so are the ctypes types of the entries these
-wrappers call, against the ``extern "C"`` signatures in ``csrc/``.
+The Sinkhorn kernel's launch layout (``sinkhorn_plan``), the sampler's work
+plan (``sampler_plan``) and the AKAZE ladder's route and tiles
+(``ladder_plan``) are plain Python that needs no card, so their invariants
+are held here; so are the ctypes types of the entries the wrappers call,
+against the ``extern "C"`` signatures in ``csrc/``.
 """
 
 import ctypes
@@ -15,7 +16,8 @@ import pytest
 import torch
 
 from onnx_image_processing_tpu_torch import ops
-from onnx_image_processing_tpu_torch.kernels import _build, sinkhorn_kernel, sparse_sampler
+from onnx_image_processing_tpu_torch.kernels import (_build, akaze_ladder, select_frontend,
+                                                     sinkhorn_kernel, sparse_sampler)
 
 CSRC = Path(sinkhorn_kernel.__file__).resolve().parents[1] / "csrc"
 
@@ -59,6 +61,67 @@ def test_sinkhorn_plan_rejects_what_cannot_run():
         sinkhorn_kernel.sinkhorn_plan(5, 5, batch=0)
     with pytest.raises(ValueError):   # the vectors alone exceed shared memory
         sinkhorn_kernel.sinkhorn_plan(10, 60_000)
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+@pytest.mark.parametrize("b,h,w", [(2, 480, 640), (1, 480, 640), (1, 720, 1280),
+                                   (2, 96, 128), (3, 5, 300), (1, 3, 9), (2, 40, 40)])
+@pytest.mark.parametrize("nms_radius,half", [(2, 7), (3, 4), (1, 15)])
+def test_ladder_plan_tiles(b, h, w, sms, nms_radius, half):
+    """Resident: the tiles cover every pixel of an image once, every tile
+    but a sole one along its axis is at least the halo deep (its halo lies
+    in its 8 neighbours), the CTAs fit one per SM, and the shared memory is
+    what the kernel computes, within the limit."""
+    plan = akaze_ladder.ladder_plan(b, h, w, sms, akaze_ladder.SMEM_LIMIT, nms_radius, half)
+    assert plan.route == "resident"
+    assert plan.halo == max(2, nms_radius + 1, half)
+    assert b * plan.ny * plan.nx <= sms
+    tiles = plan.tiles(h, w)
+    covered = np.zeros((h, w), dtype=int)
+    for y0, y1, x0, x1 in tiles:
+        covered[y0:y1, x0:x1] += 1
+        assert plan.ny == 1 or y1 - y0 >= plan.halo
+        assert plan.nx == 1 or x1 - x0 >= plan.halo
+    assert (covered == 1).all()
+    th, tw = -(-h // plan.ny), -(-w // plan.nx)
+    assert max(y1 - y0 for y0, y1, _, _ in tiles) == th
+    assert 1 <= plan.out_rows <= th
+    assert plan.smem_bytes == 4 * akaze_ladder._resident_floats(th, tw, nms_radius, half,
+                                                                plan.out_rows)
+    assert plan.smem_bytes <= akaze_ladder.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("b,h,w,tiles,chunk", [(2, 480, 640, (6, 11), 80),
+                                               (1, 480, 640, (12, 11), 40),
+                                               (1, 1080, 1920, (12, 11), 50)])
+def test_ladder_plan_path_shapes(b, h, w, tiles, chunk):
+    """The pair and the VO frame: every SM's worth of tiles (132 CTAs), the
+    scale outputs in one chunk per tile; a 1080p frame in chunks."""
+    plan = akaze_ladder.ladder_plan(b, h, w)
+    assert (plan.ny, plan.nx) == tiles and b * plan.ny * plan.nx == 132
+    assert plan.out_rows == chunk
+
+
+@pytest.mark.parametrize("b,h,w", [(2, 1080, 1920), (1, 2160, 3840), (8, 480, 640),
+                                   (200, 32, 32)])
+def test_ladder_plan_global_route(b, h, w):
+    """A state past what the card's shared memory holds in tiles of one CTA
+    per SM, or more images than SMs, takes the per-step launches."""
+    plan = akaze_ladder.ladder_plan(b, h, w)
+    assert plan.route == "global" and plan.ny == plan.nx == 0
+    # L and the two flux maps (12 bytes a pixel) past ~90% of 132 SMs' shared memory.
+    assert 12 * b * h * w > 0.9 * 132 * akaze_ladder.SMEM_LIMIT or b > 132
+
+
+def test_ladder_plan_rejects_what_cannot_run():
+    with pytest.raises(ValueError):
+        akaze_ladder.ladder_plan(0, 480, 640)
+    with pytest.raises(ValueError):
+        akaze_ladder.ladder_plan(1, 0, 640)
+    with pytest.raises(ValueError):
+        akaze_ladder.ladder_plan(1, 480, 640, nms_radius=16)
+    with pytest.raises(ValueError):
+        akaze_ladder.ladder_plan(1, 480, 640, half=16)
 
 
 def _table_groups(pairs):
@@ -105,7 +168,11 @@ def _c_params(source: str, name: str) -> list[str]:
 @pytest.mark.parametrize("source,name,argtypes", [
     ("sinkhorn.cu", "oip_sinkhorn", sinkhorn_kernel._ARGTYPES),
     ("sparse_sampler.cu", "oip_sparse_sampler", sparse_sampler._ARGTYPES),
-    ("sparse_sampler.cu", "oip_sparse_sampler_ablate", sparse_sampler._ABLATE_ARGTYPES)])
+    ("sparse_sampler.cu", "oip_sparse_sampler_ablate", sparse_sampler._ABLATE_ARGTYPES),
+    ("select_frontend.cu", "oip_select_frontend", select_frontend._ARGTYPES),
+    ("select_frontend.cu", "oip_select_topk", select_frontend._TOPK_ARGTYPES),
+    ("akaze_ladder.cu", "oip_akaze_ladder", akaze_ladder._ARGTYPES),
+    ("akaze_ladder.cu", "oip_akaze_ladder_resident", akaze_ladder._RESIDENT_ARGTYPES)])
 def test_wrapper_argtypes_match_c_entries(source, name, argtypes):
     """A pointer is passed as c_void_p, an int as c_int, a float as c_float,
     one for one: ctypes would otherwise cut pointers or shift arguments."""

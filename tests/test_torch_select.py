@@ -106,3 +106,50 @@ def test_select_topk_keypoints_matches_jax(nms_radius):
 def test_nms_select_topk_rejects_unported_mode():
     with pytest.raises(NotImplementedError):
         nms_select_topk(torch.zeros((1, 32, 32)), 8, topk_mode="approx")
+
+
+def _jax_block_topk(s, k, thr, margin, r):
+    k_j, s_j = j_nms_select_topk(jnp.asarray(s), k, thr, margin, nms_radius=r,
+                                 topk_mode="block", use_pallas=False)
+    return np.asarray(k_j), np.asarray(s_j)
+
+
+@pytest.mark.parametrize("kind,k,thr", [
+    ("ties", 200, 0.0),        # quantized map: the lowest block index wins a tie
+    ("ties", 600, 0.0),        # the whole 20 x 30 block grid (K = Hb * Wb)
+    ("random", 600, 0.0),      # K = Hb * Wb on a float map
+    ("random", 64, 0.2),       # a threshold
+    ("sparse", 300, 0.0),      # K above the count of positive blocks
+    ("signed", 150, -0.3),     # score_threshold < 0: negative maxima stay invalid
+])
+def test_nms_select_blocks_plain_matches_jax(kind, k, thr):
+    """The fused select's plain version (the CPU side of its CUDA kernel)
+    equals JAX's block-mode nms_select_topk: keypoints, scores and the
+    invalid slots, bit for bit."""
+    rng = np.random.default_rng(len(kind) * 31 + k)
+    h, w, r, margin = 120, 180, 5, 7
+    if kind == "ties":
+        s = _tie_map(seed=k, shape=(2, h, w))
+    elif kind == "sparse":
+        s = rng.random((2, h, w), dtype=np.float32) * (rng.random((2, h, w)) < 0.002)
+        s = s.astype(np.float32)
+    else:
+        s = rng.random((2, h, w), dtype=np.float32)
+        if kind == "signed":
+            s = (s - 0.6).astype(np.float32)
+    k_t, s_t = t_sf.nms_select_blocks(torch.from_numpy(s), r, k, thr, margin)
+    k_j, s_j = _jax_block_topk(s, k, thr, margin, r)
+    np.testing.assert_array_equal(k_t.numpy(), k_j)
+    np.testing.assert_array_equal(s_t.numpy(), s_j)
+    assert k_t.shape == (2, k, 2) and k_t.dtype == torch.float32
+    if kind == "sparse":
+        assert (k_t.numpy()[:, -1] == -1).all() and (s_t.numpy()[:, -1] == 0).all()
+
+
+def test_nms_select_topk_block_mode_is_the_fused_select():
+    """nms_select_topk in block mode returns nms_select_blocks' result."""
+    s = np.random.default_rng(9).random((2, 96, 128), dtype=np.float32)
+    want = t_sf.nms_select_blocks(torch.from_numpy(s), 3, 100, 0.01, 8)
+    got = nms_select_topk(torch.from_numpy(s), 100, 0.01, 8, nms_radius=3)
+    for g, e in zip(got, want):
+        assert torch.equal(g, e)
