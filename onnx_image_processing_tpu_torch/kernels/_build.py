@@ -7,8 +7,8 @@ Each source compiles in its own nvcc process, all started together, and one
 last nvcc links the objects.
 The build runs at first use, never at import, into ``build/kernels/`` beside
 the package (listed in ``.gitignore``); the library's name carries a digest
-of the sources and flags, so an edited source is rebuilt and an unchanged
-one is loaded as it is.
+of the flags, the sources and every header in ``csrc/``, so an edited source
+or header is rebuilt and an unchanged one is loaded as it is.
 """
 
 from __future__ import annotations
@@ -51,6 +51,7 @@ _lib: ctypes.CDLL | None = None
 _result: BuildResult | None = None
 _constants: dict[tuple, torch.Tensor] = {}
 _entries: dict[str, tuple] = {}
+_tickets: dict[str, torch.Tensor] = {}
 
 
 def _nvcc() -> str:
@@ -64,8 +65,10 @@ def _nvcc() -> str:
 
 
 def _digest() -> str:
+    """Digest of the flags, the sources and every header they may include."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    headers = sorted(p.name for p in CSRC.iterdir() if p.suffix in (".cuh", ".h"))
+    for name in (*SOURCES, *headers):
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]
@@ -168,4 +171,21 @@ def constant(values: np.ndarray, device: torch.device) -> torch.Tensor:
     if t is None:
         t = torch.from_numpy(values.copy()).to(device)
         _constants[key] = t
+    return t
+
+
+def ticket_counters(device: torch.device, b: int, caller: str) -> torch.Tensor:
+    """The per-image ticket counters of the kernels that select in their
+    last CTA (``select_frontend.nms_select_blocks`` and
+    ``detect_frontend.detect_select``): one set per device, shared by both,
+    at least ``b`` of them. Each launch leaves its counters at 0, so they
+    are zeroed once, when made, outside any CUDA-graph capture; calls on one
+    device must not run at once on two streams."""
+    key = str(device)
+    t = _tickets.get(key)
+    if t is None or t.numel() < b:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"{caller} makes its counters outside a CUDA-graph capture: "
+                               f"call it once at batch {b} before capturing")
+        t = _tickets[key] = torch.zeros(max(b, 64), dtype=torch.int32, device=device)
     return t

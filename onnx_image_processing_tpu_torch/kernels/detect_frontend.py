@@ -1,29 +1,137 @@
 """Detect frontend: Shi-Tomasi score, NMS keep mask and orientation moments
-in one pass.
+in one pass, and the same pass followed by the premasked block top-k.
 
 Port of ``onnx_image_processing_tpu/kernels/detect_frontend.py``
 (``detect_frontend``). On a CUDA tensor :func:`detect_frontend` launches
 ``csrc/detect_frontend.cu``; on a CPU tensor it runs
 :func:`detect_frontend_plain`, the port of ``detect_frontend_reference``.
 The TPU kernel's fallback to the XLA composition past its VMEM budget is not
-carried over: the CUDA kernel tiles any H x W.
+carried over: the CUDA kernel tiles any H x W, in tiles that
+:func:`detect_plan` picks on the host.
+
+:func:`detect_select` goes on, in the same launch, to the border-margin and
+threshold masks, the block maxima and the K best blocks as keypoints: the
+premasked select that ``models/shi_tomasi_family.py`` runs after the detect
+frontend. Its plain version is :func:`detect_select_plain`. Its ticket
+counters are the select kernel's (``_build.ticket_counters``: one set per
+device, shared by both kernels, left at 0 by every launch).
 """
 
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from . import LaunchCounter, _build, use_kernel
 from ..ops.filters import moment_taps
-from ..ops.keypoints import nms_maxpool
+from ..ops.keypoints import nms_maxpool, select_topk_keypoints
 from ..ops.orientation import angle_moments
 from ..ops.shi_tomasi import shi_tomasi_score
 
 LAUNCHES = LaunchCounter("detect_frontend")
-MAX_RADIUS = 15  # box radius, NMS radius and moment half-width the tiles fit
+MAX_RADIUS = 15  # box radius, NMS radius and moment half-width the kernel takes
+SMEM_LIMIT = 232_448      # shared memory one CTA can use on Hopper (bytes)
+SMEM_TWO_CTAS = 115_712   # per CTA, so that two share an SM's 228 KB (1 KB each reserved)
+H100_SMS = 132            # SMs of an H100 SXM, the plan's default
+SMEM_KEYS = 4096          # survivors the select sorts in shared memory (kSmemKeys)
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+_SELECT_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 10
+                    + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+_plans: dict[tuple, "DetectPlan"] = {}
+_host_taps: dict[tuple, np.ndarray] = {}
+
+
+@dataclass(frozen=True)
+class DetectPlan:
+    """The kernel's tiles: ny x nx tiles of th x tw output pixels per image
+    (whole (rn+1)^2 NMS blocks), one CTA each, each holding its image with
+    a ``halo`` pixels deep in ``smem_bytes`` of shared memory."""
+
+    th: int
+    tw: int
+    ny: int
+    nx: int
+    halo: int
+    smem_bytes: int
+
+
+def _smem_floats(rb: int, rn: int, half: int, th: int, tw: int) -> int:
+    # csrc/detect_frontend.cu smem_floats: the image with its halo, the
+    # box's three column-sum maps, the moments' two vertical-pass maps.
+    ph = rb + rn
+    hi = max(ph + 1, half)
+    return ((th + 2 * hi) * (tw + 2 * hi) + 3 * (th + 2 * rn) * (tw + 2 * ph)
+            + 2 * th * (tw + 2 * half))
+
+
+def _tile_cost(th: int, tw: int, rb: int, rn: int, half: int) -> float:
+    """Relative cost of one CTA's tile: separately rounded operations and
+    shared-memory accesses of each pass over its region, every row's
+    columns rounded up to warps of 32 lanes, plus a fixed cost per CTA."""
+    ph, nt, bw = rb + rn, 2 * half + 1, 2 * rb + 1
+    hi = max(ph + 1, half)
+    sr = th + 2 * rn
+
+    def lanes(n):
+        return -(-n // 32) * 32
+
+    return (2 * (th + 2 * hi) * lanes(tw + 2 * hi)              # image load
+            + sr * lanes(tw + 2 * ph) * (1.5 * 24 + 3 * bw)     # Sobel products, column sums
+            + sr * lanes(tw + 2 * rn) * (4 * bw + 10)           # row sums, lambda_min
+            + th * lanes(tw + 2 * rn) * (2 * rn + 2)            # NMS column max
+            + th * lanes(tw) * (2 * (2 * rn + 1) + 5)           # NMS row max, keep, store
+            + th * lanes(tw + 2 * half) * (4 * nt + 3)          # moments, vertical
+            + th * lanes(tw) * 6 * nt                           # moments, horizontal
+            + 10_000)
+
+
+def detect_plan(b: int, h: int, w: int, rb: int, rn: int, half: int,
+                sms: int = H100_SMS) -> DetectPlan:
+    """The tiles of ``b`` images of ``h`` x ``w`` at box radius ``rb``, NMS
+    radius ``rn`` and moment half-width ``half``, on a card with ``sms``
+    SMs; needs no card.
+
+    Tiles hold whole (rn+1)^2 blocks, at most 96 x 256 pixels and no more
+    blocks than the image has, and fit two CTAs per SM. Of those, the one
+    whose busiest SM does the least work: the tiles per SM
+    (ceil(CTAs / sms)) times :func:`_tile_cost`; then the most CTAs.
+    """
+    if b < 1 or h < 1 or w < 1:
+        raise ValueError(f"empty detect input {b}x{h}x{w}")
+    if not all(0 <= r <= MAX_RADIUS for r in (rb, rn, half)):
+        raise ValueError(f"box radius, NMS radius and moment half-width must be in "
+                         f"0..{MAX_RADIUS}, got {rb}, {rn}, {half}")
+    bs = rn + 1
+    best, best_key = None, None
+    for th in range(bs, min(-(-h // bs) * bs, 96) + 1, bs):
+        for tw in range(bs, min(-(-w // bs) * bs, 256) + 1, bs):
+            smem = 4 * _smem_floats(rb, rn, half, th, tw)
+            if smem > SMEM_TWO_CTAS:
+                break
+            ny, nx = -(-h // th), -(-w // tw)
+            ctas = b * ny * nx
+            key = (-(-ctas // sms) * _tile_cost(th, tw, rb, rn, half), -ctas)
+            if best_key is None or key < best_key:
+                best, best_key = DetectPlan(th, tw, ny, nx, max(rb + rn + 1, half), smem), key
+    if best is None:
+        raise ValueError(f"no tile of whole {bs}x{bs} blocks fits shared memory at radii "
+                         f"{rb}, {rn}, {half}")
+    return best
+
+
+def device_plan(b: int, h: int, w: int, rb: int, rn: int, half: int,
+                device: torch.device) -> DetectPlan:
+    """:func:`detect_plan` for ``device``'s SM count (asked once per shape
+    and device)."""
+    key = (b, h, w, rb, rn, half, str(device))
+    plan = _plans.get(key)
+    if plan is None:
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        plan = _plans[key] = detect_plan(b, h, w, rb, rn, half, sms)
+    return plan
 
 
 def detect_frontend_plain(image: torch.Tensor, block_size: int = 3,
@@ -36,6 +144,59 @@ def detect_frontend_plain(image: torch.Tensor, block_size: int = 3,
         return masked, None, None
     m10, m01 = angle_moments(image, patch_size=patch_size, sigma=sigma)
     return masked, m10, m01
+
+
+def detect_select_plain(image: torch.Tensor, block_size: int = 3, patch_size: int = 15,
+                        sigma: float = 2.5, nms_radius: int = 5, max_keypoints: int = 512,
+                        score_threshold: float = 0.0, border_margin: int = 0,
+                        with_angle: bool = True):
+    """Plain PyTorch version of :func:`detect_select`: the plain detect
+    frontend, then the premasked block select (``select_topk_keypoints``
+    with an all-ones NMS mask, as ``_select_premasked`` runs it)."""
+    masked, m10, m01 = detect_frontend_plain(image, block_size, patch_size, sigma,
+                                             nms_radius, with_angle)
+    m = masked[:, 0]
+    kpts, kscores = select_topk_keypoints(m, torch.ones_like(m), max_keypoints,
+                                          score_threshold, border_margin,
+                                          nms_radius=nms_radius)
+    return kpts, kscores, masked, m10, m01
+
+
+def _check(image: torch.Tensor, block_size: int, patch_size: int, sigma: float,
+           nms_radius: int) -> tuple[int, int]:
+    """Raise on what the kernel does not take; return (rb, half)."""
+    if image.dtype != torch.float32 or image.dim() != 4 or image.shape[1] != 1:
+        raise ValueError(f"image must be (B, 1, H, W) float32, got "
+                         f"{tuple(image.shape)} {image.dtype}")
+    if not image.is_contiguous():
+        raise ValueError("image must be contiguous")
+    if block_size <= 0 or block_size % 2 == 0 or patch_size % 2 == 0 or sigma <= 0:
+        raise ValueError("block_size and patch_size must be odd and positive, "
+                         "sigma positive")
+    rb, half = block_size // 2, patch_size // 2
+    if max(rb, nms_radius, half) > MAX_RADIUS or nms_radius < 0:
+        raise ValueError(f"block_size // 2, nms_radius and patch_size // 2 must "
+                         f"be in 0..{MAX_RADIUS}, got {rb}, {nms_radius}, {half}")
+    return rb, half
+
+
+def _taps(sigma: float, patch_size: int) -> np.ndarray:
+    """The moment taps g, then t*g, in host memory: the kernel takes them by
+    value in its launch parameters."""
+    key = (float(sigma), int(patch_size))
+    taps = _host_taps.get(key)
+    if taps is None:
+        taps = _host_taps[key] = np.ascontiguousarray(
+            np.concatenate(moment_taps(sigma, patch_size)), dtype=np.float32)
+    return taps
+
+
+def _maps(image: torch.Tensor, with_angle: bool):
+    b, _, h, w = image.shape
+    score = torch.empty((b, 1, h, w), dtype=torch.float32, device=image.device)
+    m10, m01 = ((torch.empty_like(score), torch.empty_like(score))
+                if with_angle else (None, None))
+    return score, m10, m01
 
 
 def detect_frontend(image: torch.Tensor, block_size: int = 3,
@@ -56,31 +217,78 @@ def detect_frontend(image: torch.Tensor, block_size: int = 3,
     if not use_kernel(image):
         return detect_frontend_plain(image, block_size, patch_size, sigma,
                                      nms_radius, with_angle)
-    if image.dtype != torch.float32 or image.dim() != 4 or image.shape[1] != 1:
-        raise ValueError(f"image must be (B, 1, H, W) float32, got "
-                         f"{tuple(image.shape)} {image.dtype}")
-    if not image.is_contiguous():
-        raise ValueError("image must be contiguous")
-    if block_size <= 0 or block_size % 2 == 0 or patch_size % 2 == 0 or sigma <= 0:
-        raise ValueError("block_size and patch_size must be odd and positive, "
-                         "sigma positive")
-    rb, half = block_size // 2, patch_size // 2
-    if max(rb, nms_radius, half) > MAX_RADIUS or nms_radius < 0:
-        raise ValueError(f"block_size // 2, nms_radius and patch_size // 2 must "
-                         f"be in 0..{MAX_RADIUS}, got {rb}, {nms_radius}, {half}")
+    rb, half = _check(image, block_size, patch_size, sigma, nms_radius)
     b, _, h, w = image.shape
-    dev = image.device
-    score = torch.empty((b, 1, h, w), dtype=torch.float32, device=dev)
-    m10, m01 = ((torch.empty_like(score), torch.empty_like(score))
-                if with_angle else (None, None))
-    taps = _build.constant(np.concatenate(moment_taps(sigma, patch_size)), dev)
-    fn = _build.entry("oip_detect_frontend", [ctypes.c_void_p] * 5
-                      + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+    rn = int(nms_radius)
+    plan = device_plan(b, h, w, rb, rn, half, image.device)
+    score, m10, m01 = _maps(image, with_angle)
+    taps = _taps(sigma, patch_size)
+    fn = _build.entry("oip_detect_frontend", _ARGTYPES)
     # Without the angle the kernel reads no taps and writes no moments (NULL).
     moments = (_build.ptr(m10), _build.ptr(m01)) if with_angle else (None, None)
-    err = fn(_build.ptr(image), _build.ptr(taps), _build.ptr(score), *moments,
-             b, h, w, rb, int(nms_radius), half, int(with_angle),
-             _build.stream(image))
+    err = fn(_build.ptr(image), taps.ctypes.data_as(ctypes.c_void_p) if with_angle else None,
+             _build.ptr(score), *moments, b, h, w, rb, rn, half, int(with_angle),
+             plan.th, plan.tw, _build.stream(image))
     _build.check(err, "detect_frontend launch")
     LAUNCHES.count += 1
     return score, m10, m01
+
+
+def detect_select(image: torch.Tensor, block_size: int = 3, patch_size: int = 15,
+                  sigma: float = 2.5, nms_radius: int = 5, max_keypoints: int = 512,
+                  score_threshold: float = 0.0, border_margin: int = 0,
+                  with_angle: bool = True):
+    """:func:`detect_frontend`, then in the same launch the premasked block
+    select: the border-margin and threshold masks on the masked score, each
+    (r+1)^2 block's max and the minimum raster index of it, and the
+    ``max_keypoints`` largest block maxima of each image (equal values
+    lowest block index first), decoded to keypoints.
+
+    Args:
+        image: (B, 1, H, W) float32.
+        nms_radius: r >= 1.
+        max_keypoints: K, 1 <= K <= Hb * Wb (the block grid).
+
+    Returns:
+        ``(keypoints (B, K, 2) f32 (y, x), scores (B, K), masked_score, m10,
+        m01)``: a slot whose block max is <= 0 is (-1, -1) with score 0; the
+        maps are :func:`detect_frontend`'s.
+    """
+    if not use_kernel(image):
+        return detect_select_plain(image, block_size, patch_size, sigma, nms_radius,
+                                   max_keypoints, score_threshold, border_margin,
+                                   with_angle)
+    rb, half = _check(image, block_size, patch_size, sigma, nms_radius)
+    rn, k = int(nms_radius), int(max_keypoints)
+    if rn < 1:
+        raise ValueError(f"detect_select needs nms_radius >= 1, got {rn}")
+    b, _, h, w = image.shape
+    bs = rn + 1
+    hb, wb = -(-h // bs), -(-w // bs)
+    if not 1 <= k <= hb * wb:
+        raise ValueError(f"max_keypoints must be in 1..{hb * wb} (the block grid), got {k}")
+    if (hb * bs) * w + wb * bs >= 2 ** 31:
+        raise ValueError(f"a {h}x{w} map overflows int32 raster indices")
+    dev = image.device
+    plan = device_plan(b, h, w, rb, rn, half, dev)
+    score, m10, m01 = _maps(image, with_angle)
+    block_max = torch.empty((b, hb, wb), dtype=torch.float32, device=dev)
+    block_idx = torch.empty((b, hb, wb), dtype=torch.int32, device=dev)
+    kpts = torch.empty((b, k, 2), dtype=torch.float32, device=dev)
+    kscores = torch.empty((b, k), dtype=torch.float32, device=dev)
+    p2 = 1 << (k - 1).bit_length()
+    keys = (torch.empty((b, p2), dtype=torch.int64, device=dev) if p2 > SMEM_KEYS
+            else None)
+    counters = _build.ticket_counters(dev, b, "detect_select")
+    taps = _taps(sigma, patch_size)
+    fn = _build.entry("oip_detect_select", _SELECT_ARGTYPES)
+    moments = (_build.ptr(m10), _build.ptr(m01)) if with_angle else (None, None)
+    err = fn(_build.ptr(image), taps.ctypes.data_as(ctypes.c_void_p) if with_angle else None,
+             _build.ptr(score), *moments, _build.ptr(block_max), _build.ptr(block_idx),
+             _build.ptr(counters), None if keys is None else _build.ptr(keys),
+             _build.ptr(kpts), _build.ptr(kscores), b, h, w, rb, rn, half, int(with_angle),
+             plan.th, plan.tw, int(border_margin), float(score_threshold), k,
+             0 if keys is None else p2, _build.stream(image))
+    _build.check(err, "detect_select launch")
+    LAUNCHES.count += 1
+    return kpts, kscores, score, m10, m01

@@ -28,10 +28,6 @@ SMEM_KEYS = 4096  # survivors the kernel sorts in shared memory (kSmemKeys)
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
 _TOPK_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
-# Per device: the top-k kernel's ticket counter of each batch entry. The
-# kernel leaves it at 0, so it is zeroed once, when it is made. Calls on one
-# device share it: two launches must not run at once on two streams.
-_counters: dict[str, torch.Tensor] = {}
 
 
 def nms_block_reduce_plain(scores: torch.Tensor, nms_radius: int,
@@ -127,8 +123,9 @@ def nms_select_blocks(scores: torch.Tensor, nms_radius: int, max_keypoints: int,
     keys = (torch.empty((b, p2), dtype=torch.int64, device=dev) if p2 > SMEM_KEYS
             else None)
     fn = _build.entry("oip_select_topk", _TOPK_ARGTYPES)
+    counters = _build.ticket_counters(dev, b, "nms_select_blocks")
     err = fn(_build.ptr(scores), _build.ptr(block_max), _build.ptr(block_idx),
-             _build.ptr(_counter(dev, b)), None if keys is None else _build.ptr(keys),
+             _build.ptr(counters), None if keys is None else _build.ptr(keys),
              _build.ptr(kpts), _build.ptr(kscores), b, h, w, int(nms_radius),
              int(border_margin), float(score_threshold), k,
              0 if keys is None else p2, _build.stream(scores))
@@ -136,15 +133,3 @@ def nms_select_blocks(scores: torch.Tensor, nms_radius: int, max_keypoints: int,
     LAUNCHES.count += 1
     return kpts, kscores
 
-
-def _counter(device: torch.device, b: int) -> torch.Tensor:
-    """The ticket counters of ``device``, at least ``b`` of them, all 0
-    between launches."""
-    key = str(device)
-    t = _counters.get(key)
-    if t is None or t.numel() < b:
-        if torch.cuda.is_current_stream_capturing():
-            raise RuntimeError("nms_select_blocks makes its counters outside a CUDA-graph "
-                               f"capture: call it once at batch {b} before capturing")
-        t = _counters[key] = torch.zeros(max(b, 64), dtype=torch.int32, device=device)
-    return t

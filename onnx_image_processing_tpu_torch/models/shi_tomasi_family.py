@@ -13,9 +13,10 @@ package's backend knobs (``use_pallas``, ``select_frontend``,
 
 ``MatcherConfig.fused_detect`` is kept as a user flag only for parity with
 the JAX package's config. It picks another composition: the detect-frontend
-kernel (score * NMS mask and the moments in one pass) followed by a plain
-top-k over the premasked map, in place of the plain stencils and the
-select-frontend kernel. The two may select up to a few different keypoints
+kernel (score * NMS mask and the moments in one pass) followed by the top-k
+over the premasked map, in place of the plain stencils and the
+select-frontend kernel; in block mode the top-k runs in the detect kernel's
+launch (``detect_select``). The two may select up to a few different keypoints
 (the premasked map keeps scores within 1e-7 of the local max), so the flag
 is not yet decided by the device as AKAZE's ladder is (ROADMAP.md).
 """
@@ -27,7 +28,7 @@ from torch import nn
 
 from ..core import MatcherConfig
 from ..kernels import detect_frontend
-from ..ops import (BADTable, angle_estimation, angle_moments, dense_bad,
+from ..ops import (BADTable, angle_estimation, angle_moments, block_route, dense_bad,
                    load_bad_params, nms_select_topk, select_topk_keypoints,
                    shi_tomasi_score, sinkhorn_match, sinkhorn_match_with_filters,
                    sparse_bad)
@@ -63,13 +64,22 @@ def _select_premasked(masked_b1hw: torch.Tensor, cfg: MatcherConfig,
 
 def _fused_detect_select(image: torch.Tensor, cfg: MatcherConfig, margin: int,
                          with_angle: bool):
-    """Detect frontend (kernel on a CUDA tensor, plain version on a CPU
-    tensor), then the premasked select. Returns keypoints, scores and the
-    (m10, m01) moment maps (None without the angle)."""
-    masked, m10, m01 = detect_frontend.detect_frontend(
-        image, block_size=cfg.block_size, patch_size=cfg.patch_size,
-        sigma=cfg.sigma, nms_radius=cfg.nms_radius, with_angle=with_angle)
-    kpts, kscores = _select_premasked(masked, cfg, margin)
+    """Detect frontend, then the premasked select. Where the block top-k
+    applies (``ops.block_route``), both run as ``detect_select``: one
+    launch of the detect kernel on a CUDA tensor, the plain composition on
+    a CPU tensor. Otherwise the detect frontend, then the flat top-k.
+    Returns keypoints, scores and the (m10, m01) moment maps (None without
+    the angle)."""
+    kw = dict(block_size=cfg.block_size, patch_size=cfg.patch_size, sigma=cfg.sigma,
+              nms_radius=cfg.nms_radius, with_angle=with_angle)
+    h, w = image.shape[-2:]
+    if block_route(cfg.topk_mode, cfg.nms_radius, h, w, cfg.max_keypoints):
+        kpts, kscores, _, m10, m01 = detect_frontend.detect_select(
+            image, max_keypoints=cfg.max_keypoints, score_threshold=cfg.score_threshold,
+            border_margin=margin, **kw)
+    else:
+        masked, m10, m01 = detect_frontend.detect_frontend(image, **kw)
+        kpts, kscores = _select_premasked(masked, cfg, margin)
     return kpts, kscores, (m10, m01) if with_angle else None
 
 

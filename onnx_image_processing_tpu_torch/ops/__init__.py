@@ -5,7 +5,7 @@ from .filters import (box_average_bank, box_sum2d, conv1d_h, conv1d_w, edge_exte
 from .shi_tomasi import shi_tomasi_score
 from .orientation import angle_estimation, angle_moments
 from .sampling import sample_bank_fused, sample_bilinear, sample_nearest
-from .keypoints import (mask_scores, block_reduce, nms_maxpool,
+from .keypoints import (mask_scores, block_reduce, block_route, nms_maxpool,
                         nms_select_topk, select_topk_keypoints)
 from .bad import (BADParams, BADTable, box_sample_inputs, dense_bad,
                   extract_descriptors_at_keypoints,
@@ -23,7 +23,7 @@ __all__ = [
     "maxpool2d_same", "moment_taps", "pad2d", "sep_conv2d",
     "shi_tomasi_score", "angle_estimation", "angle_moments", "sample_bank_fused",
     "sample_bilinear", "sample_nearest",
-    "mask_scores", "block_reduce", "nms_maxpool", "nms_select_topk",
+    "mask_scores", "block_reduce", "block_route", "nms_maxpool", "nms_select_topk",
     "select_topk_keypoints", "BADParams", "BADTable", "box_sample_inputs",
     "dense_bad", "extract_descriptors_at_keypoints",
     "extract_descriptors_at_keypoints_subpixel",

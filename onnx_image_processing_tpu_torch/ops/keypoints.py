@@ -106,6 +106,15 @@ def _select_blocks(block_max, block_idx, max_keypoints: int, w: int):
     return _decode_topk(topk_scores, topk_idx.long(), w)
 
 
+def block_route(topk_mode: str, nms_radius: int, h: int, w: int, max_keypoints: int) -> bool:
+    """Whether selection takes the block top-k: block mode, an NMS radius of
+    at least 1, and at least ``max_keypoints`` blocks of (r+1)^2 pixels."""
+    if topk_mode != "block" or nms_radius < 1:
+        return False
+    bs = nms_radius + 1
+    return -(-h // bs) * -(-w // bs) >= max_keypoints
+
+
 def nms_select_topk(scores: torch.Tensor, max_keypoints: int,
                     score_threshold: float = 0.0, border_margin: int = 0,
                     nms_radius: int = 3, topk_mode: str = "block"):
@@ -126,12 +135,8 @@ def nms_select_topk(scores: torch.Tensor, max_keypoints: int,
     if topk_mode not in ("block", "sort"):
         raise NotImplementedError(
             f"topk_mode {topk_mode!r} is not ported (use 'block' or 'sort')")
-    b, h, w = scores.shape
-    use_blocks = topk_mode == "block" and nms_radius >= 1
-    if use_blocks:
-        bs = nms_radius + 1
-        use_blocks = -(-h // bs) * -(-w // bs) >= max_keypoints
-    if use_blocks:
+    h, w = scores.shape[-2:]
+    if block_route(topk_mode, nms_radius, h, w, max_keypoints):
         return select_frontend.nms_select_blocks(scores, nms_radius, max_keypoints,
                                                  score_threshold, border_margin)
     mask = nms_maxpool(scores, nms_radius)

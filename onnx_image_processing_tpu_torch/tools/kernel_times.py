@@ -23,7 +23,15 @@ Cases (one JSON line each, with the card's name and power limit):
   (NMS, masks, block top-k and decode) on the pair's Shi-Tomasi scores
   (radius 5, K=512, margin 16) and AKAZE scores (radius 3, K=1024);
 - ``akaze ladder B=2`` / ``akaze ladder B=1``: ``kernels.akaze_ladder.akaze_ladder``
-  at its defaults on the pair and on its first image (a VO frame).
+  at its defaults on the pair and on its first image (a VO frame);
+- ``detect frontend B=2`` / ``... score only``: ``kernels.detect_frontend.detect_frontend``
+  at the flagship's settings (block 5, NMS 5, patch 15) on the pair, with
+  and without the moments;
+- ``fused detect select B=2`` / ``... B=1``: the fused flagship's detect and
+  select (``models.shi_tomasi_family._fused_detect_select``: K=512, margin
+  16, with the moments) on the pair and on its first image (a VO frame): one
+  ``detect_select`` launch where the tree has it, else the detect frontend
+  followed by the plain premasked chain.
 
 ``device_ms``: a CUDA graph of 20 calls replayed between CUDA events, per
 call (``tools/ablate_sampler.py`` ``graph_ms``); ``ms``: CUDA events around
@@ -115,6 +123,27 @@ def select_and_ladder_cases(dev: torch.device) -> list[tuple[str, object]]:
     ]
 
 
+def detect_cases(dev: torch.device) -> list[tuple[str, object]]:
+    """The detect frontend and the fused detect + select on ``chip_smoke.py``'s pair."""
+    import chip_smoke
+    from onnx_image_processing_tpu_torch.kernels import detect_frontend
+    from onnx_image_processing_tpu_torch.models.shi_tomasi_family import _fused_detect_select
+
+    both = torch.cat([torch.from_numpy(a) for a in chip_smoke.bench_pair()]).to(dev)
+    frame = both[:1].contiguous()
+    fused = models.build(chip_smoke.FLAGSHIP, device=dev, max_keypoints=chip_smoke.MAX_KEYPOINTS,
+                         fused_detect=True)
+    cfg, margin = fused.cfg, fused.table.max_radius
+    args = (cfg.block_size, cfg.patch_size, cfg.sigma, cfg.nms_radius)
+    return [
+        ("detect frontend B=2", lambda: detect_frontend.detect_frontend(both, *args)),
+        ("detect frontend B=2 score only",
+         lambda: detect_frontend.detect_frontend(both, *args, with_angle=False)),
+        ("fused detect select B=2", lambda: _fused_detect_select(both, cfg, margin, True)),
+        ("fused detect select B=1", lambda: _fused_detect_select(frame, cfg, margin, True)),
+    ]
+
+
 def timed(label: str, case: str, fn) -> dict:
     return {"tree": label, "case": case, "device_ms": graph_ms(fn), "ms": cuda_ms(fn),
             "launches": device_launches(fn)}
@@ -146,7 +175,7 @@ def run(label: str) -> list[dict]:
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     lines.append({"tree": label, "case": "oriented dense map", "ms": float(np.median(times))})
-    for case, fn in select_and_ladder_cases(dev):
+    for case, fn in select_and_ladder_cases(dev) + detect_cases(dev):
         lines.append(timed(label, case, fn))
     return lines
 

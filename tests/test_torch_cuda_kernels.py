@@ -253,18 +253,117 @@ def test_flagship_launches_each_kernel(dev):
 
 # The two stencil kernels round every multiply and add on their own, in their
 # plain versions' order, so they are held to bit-identity.
-@pytest.mark.parametrize("h,w,block,nms,with_angle", [
-    (120, 160, 5, 5, True), (97, 131, 3, 3, True), (64, 80, 3, 0, True),
-    (96, 144, 3, 5, False), (33, 40, 1, 2, True)])
-def test_detect_frontend_kernel_bitexact(dev, h, w, block, nms, with_angle):
-    rng = np.random.default_rng(h * w)
-    img = torch.from_numpy(rng.uniform(0, 255, (2, 1, h, w)).astype(np.float32)).to(dev)
-    got = detect_frontend.detect_frontend(img, block, 15, 2.5, nms, with_angle)
-    want = detect_frontend.detect_frontend_plain(img, block, 15, 2.5, nms, with_angle)
+@pytest.mark.parametrize("b,h,w,block,nms,patch,with_angle", [
+    (2, 120, 160, 5, 5, 15, True), (2, 97, 131, 3, 3, 15, True), (2, 64, 80, 3, 0, 15, True),
+    (2, 96, 144, 3, 5, 15, False), (2, 33, 40, 1, 2, 15, True),
+    # the pair, a 1080p frame and a strip shallower than the halo, with and
+    # without moments (the flagship's radii, template constants)
+    (2, 480, 640, 5, 5, 15, True), (2, 480, 640, 5, 5, 15, False),
+    (1, 1080, 1920, 5, 5, 15, True), (1, 1080, 1920, 5, 5, 15, False),
+    (2, 5, 300, 5, 5, 15, True), (2, 5, 300, 5, 5, 15, False),
+    (2, 480, 640, 3, 5, 15, True),                       # box 1: the other fixed instantiation
+    (2, 200, 300, 7, 3, 9, True), (1, 100, 120, 31, 15, 31, True)])   # general radii
+def test_detect_frontend_kernel_bitexact(dev, b, h, w, block, nms, patch, with_angle):
+    rng = np.random.default_rng(h * w + b)
+    img = torch.from_numpy(rng.uniform(0, 255, (b, 1, h, w)).astype(np.float32)).to(dev)
+    got = detect_frontend.detect_frontend(img, block, patch, 2.5, nms, with_angle)
+    want = detect_frontend.detect_frontend_plain(img, block, patch, 2.5, nms, with_angle)
     for g, e in zip(got, want):
         assert (g is None) == (e is None)
         if g is not None:
             assert torch.equal(g, e), (g - e).abs().max().item()
+    assert (want[0] > 0).any()
+
+
+def test_detect_frontend_kernel_zero_taps(dev):
+    """At sigma 0.3 the outer Gaussian taps of a 15-tap patch underflow to
+    0: the launch takes the general kernel, which skips every zero tap."""
+    rng = np.random.default_rng(8)
+    img = torch.from_numpy(rng.uniform(0, 255, (2, 1, 96, 128)).astype(np.float32)).to(dev)
+    assert (ops.moment_taps(0.3, 15)[0] == 0).any()
+    got = detect_frontend.detect_frontend(img, 5, 15, 0.3, 5)
+    want = detect_frontend.detect_frontend_plain(img, 5, 15, 0.3, 5)
+    _select_equal(got, want)
+    args = (5, 15, 0.3, 5, 64, 0.0, 8)
+    _select_equal(detect_frontend.detect_select(img, *args),
+                  detect_frontend.detect_select_plain(img, *args))
+
+
+def _detect_images(rng, b, h, w):
+    """A uniform random image and one of three grey levels (tied scores)."""
+    return [rng.uniform(0, 255, (b, 1, h, w)).astype(np.float32),
+            (64.0 * rng.integers(0, 3, (b, 1, h, w))).astype(np.float32)]
+
+
+def _select_equal(got, want):
+    for g, e in zip(got, want):
+        assert (g is None) == (e is None)
+        if g is not None:
+            assert torch.equal(g, e), (g.shape, (g != e).sum().item())
+
+
+@pytest.mark.parametrize("b", [1, 2, 8])
+@pytest.mark.parametrize("h,w,block,nms,margin,thr", [
+    (120, 160, 5, 5, 7, 0.0), (97, 131, 3, 3, 8, 50.0), (64, 80, 5, 1, 4, 0.0),
+    (96, 128, 7, 7, 10, 0.0), (50, 70, 5, 15, 0, -0.2)])
+def test_detect_select_kernel_bitexact(dev, b, h, w, block, nms, margin, thr):
+    """detect_select (detect, masks, block reduce, top-k, decode in one
+    launch) equals its plain composition bit for bit: keypoints, scores and
+    the three maps, for K from 1 to the whole block grid."""
+    rng = np.random.default_rng(h * w + b + nms)
+    n = -(-h // (nms + 1)) * -(-w // (nms + 1))
+    for img in _detect_images(rng, b, h, w):
+        img = torch.from_numpy(img).to(dev)
+        for k in sorted({1, min(100, n), n // 2, n - 1, n} - {0}):
+            args = (block, 15, 2.5, nms, k, thr, margin)
+            reset_launch_counts()
+            got = detect_frontend.detect_select(img, *args)
+            assert launch_counts()["detect_frontend"] == 1
+            _select_equal(got, detect_frontend.detect_select_plain(img, *args))
+
+
+@pytest.mark.parametrize("b,h,w,nms,k,margin,with_angle", [
+    (2, 240, 320, 1, 19200, 0, True),   # the sort in device memory (K past 4096 keys)
+    (2, 240, 320, 1, 5000, 0, False),
+    (1, 480, 640, 1, 1000, 16, True),   # 76,800 blocks: read from L2, not staged
+    (2, 480, 640, 5, 512, 16, True),    # the fused flagship pair
+    (1, 480, 640, 5, 512, 16, True)])   # a VO frame
+def test_detect_select_kernel_large(dev, b, h, w, nms, k, margin, with_angle):
+    rng = np.random.default_rng(k + h)
+    for img in _detect_images(rng, b, h, w):
+        img = torch.from_numpy(img).to(dev)
+        args = (5, 15, 2.5, nms, k, 0.0, margin, with_angle)
+        _select_equal(detect_frontend.detect_select(img, *args),
+                      detect_frontend.detect_select_plain(img, *args))
+
+
+def test_detect_select_kernel_repeats_and_graph_replay(dev):
+    """The ticket counters reset themselves: 50 calls in a row and a CUDA
+    graph of 20 calls replayed twice give the plain result every time."""
+    rng = np.random.default_rng(6)
+    img = torch.from_numpy(rng.uniform(0, 255, (2, 1, 480, 640)).astype(np.float32)).to(dev)
+    args = (5, 15, 2.5, 5, 512, 0.0, 16)
+    want = detect_frontend.detect_select_plain(img, *args)
+    outs = [detect_frontend.detect_select(img, *args) for _ in range(50)]
+    torch.cuda.synchronize()
+    for o in outs:
+        _select_equal(o, want)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        detect_frontend.detect_select(img, *args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = [detect_frontend.detect_select(img, *args) for _ in range(20)]
+    for _ in range(2):
+        for o in captured:
+            o[0].fill_(7.0)
+            o[2].fill_(7.0)
+        graph.replay()
+        torch.cuda.synchronize()
+        for o in captured:
+            _select_equal(o, want)
 
 
 @pytest.mark.parametrize("h,w,scales,iters,nms,patch", [
@@ -323,6 +422,13 @@ def test_flagship_fused_detect_launches(dev, fused):
     counts = launch_counts()
     assert counts["detect_frontend"] == int(fused)
     assert counts["select_frontend"] == int(not fused)
+    if fused:   # detect and select: one device launch, no plain chain after it
+        from onnx_image_processing_tpu_torch.models.shi_tomasi_family import (
+            _fused_detect_select)
+        from onnx_image_processing_tpu_torch.tools.kernel_times import device_launches
+
+        both = torch.cat(imgs)
+        assert device_launches(lambda: _fused_detect_select(both, fn.cfg, 16, True)) == 1
 
 
 def test_akaze_matcher_launches_each_kernel(dev):
@@ -359,6 +465,12 @@ def test_kernel_wrappers_validate_inputs(dev):
         akaze_ladder.akaze_ladder(torch.zeros((1, 8, 8), device=dev), orientation_patch_size=14)
     with pytest.raises(ValueError):   # K past the 4 x 4 block grid
         select_frontend.nms_select_blocks(torch.zeros((1, 8, 8), device=dev), 1, 17)
+    with pytest.raises(ValueError):   # the block top-k needs an NMS radius
+        detect_frontend.detect_select(torch.zeros((1, 1, 8, 8), device=dev), nms_radius=0,
+                                      max_keypoints=4)
+    with pytest.raises(ValueError):   # K past the 4 x 4 block grid
+        detect_frontend.detect_select(torch.zeros((1, 1, 8, 8), device=dev), nms_radius=1,
+                                      max_keypoints=17)
 
 
 def _sampler_args(dev, seed=5, h=96, w=128, k=48):

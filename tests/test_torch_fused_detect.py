@@ -11,6 +11,9 @@ differ on < 1e-4 of pixels. The
 fused flagship: equal keypoints, or at most 2 swaps per image, with P within
 5e-3 on the common keypoints. Fused vs unfused inside the port: keypoint
 sets within 2 swaps, descriptors within 2e-3 on the common keypoints.
+``detect_select_plain`` (detect, then the premasked block top-k) against
+JAX's ``_fused_detect_select``: keypoint sets within 2 swaps per image, the
+scores of the common keypoints and the three maps within the map tolerance.
 """
 
 import jax.numpy as jnp
@@ -20,9 +23,13 @@ import torch
 
 import onnx_image_processing_tpu.kernels.detect_frontend as jdf
 from onnx_image_processing_tpu import models as jax_models
+from onnx_image_processing_tpu.core.config import MatcherConfig as JaxMatcherConfig
+from onnx_image_processing_tpu.models.shi_tomasi_family import (
+    _fused_detect_select as jax_fused_detect_select)
 from onnx_image_processing_tpu_torch import models
 from onnx_image_processing_tpu_torch.core import MatcherConfig
 from onnx_image_processing_tpu_torch.kernels import detect_frontend, launch_counts, reset_launch_counts
+from onnx_image_processing_tpu_torch.models import shi_tomasi_family
 from onnx_image_processing_tpu_torch.models.shi_tomasi_family import _sparse_detect_describe
 from onnx_image_processing_tpu_torch.ops import BADTable, load_bad_params
 
@@ -132,3 +139,49 @@ def test_fused_matches_unfused_in_the_port(topk_mode):
         for kpt in set(ix) & set(ip):
             np.testing.assert_allclose(dp[b, ip[kpt]].numpy(), dx[b, ix[kpt]].numpy(),
                                        atol=2e-3, rtol=0)
+
+
+@pytest.mark.parametrize("h,w", [(120, 160), (97, 131)])
+def test_detect_select_plain_matches_jax_fused_detect_select(h, w, jax_kernel_interpreted):
+    rng = np.random.default_rng(h + w)
+    img = rng.uniform(0, 255, (2, 1, h, w)).astype(np.float32)
+    kw = dict(max_keypoints=64, block_size=5, nms_radius=5, topk_mode="block")
+    margin = 16
+    kj, sj, (m10j, m01j) = (o if isinstance(o, tuple) else np.asarray(o) for o in
+                            jax_fused_detect_select(jnp.asarray(img), JaxMatcherConfig(**kw),
+                                                    margin, True))
+    masked_j = np.asarray(jdf.detect_frontend(jnp.asarray(img), block_size=5, nms_radius=5)[0])
+    kt, st, masked_t, m10t, m01t = (o.numpy() for o in detect_frontend.detect_select_plain(
+        torch.from_numpy(img), 5, 15, 2.5, 5, 64, 0.0, margin))
+    assert kt.shape == (2, 64, 2) and st.shape == (2, 64)
+    assert (st > 0).sum() > 64
+    for b in range(2):
+        ia, ib, swaps = _common_index(kt[b], np.asarray(kj[b]))
+        assert swaps <= 2, f"keypoint sets differ by {swaps}"
+        _map_close(st[b][ia[:-1]], np.asarray(sj[b])[ib[:-1]])
+    for got, want in ((masked_t, masked_j), (m10t, m10j), (m01t, m01j)):
+        _map_close(got, np.asarray(want))
+
+
+@pytest.mark.parametrize("topk_mode,k,route", [("block", 64, "detect_select"),
+                                               ("sort", 64, "detect_frontend"),
+                                               ("block", 200, "detect_frontend")])
+def test_fused_detect_select_route(monkeypatch, topk_mode, k, route):
+    """Block mode with at least K blocks runs detect_select (one launch on
+    a CUDA tensor); sort mode, and fewer blocks than K (a 48x64 map has 8 x
+    11 = 88 blocks of 6 x 6), run the detect frontend and the premasked
+    top-k after it. Either gives the plain composition's keypoints."""
+    calls = []
+    for name in ("detect_select", "detect_frontend"):
+        orig = getattr(detect_frontend, name)
+        monkeypatch.setattr(detect_frontend, name,
+                            lambda *a, _o=orig, _n=name, **kw: calls.append(_n) or _o(*a, **kw))
+    rng = np.random.default_rng(k)
+    img = torch.from_numpy(rng.uniform(0, 255, (1, 1, 48, 64)).astype(np.float32))
+    cfg = MatcherConfig(max_keypoints=k, topk_mode=topk_mode, nms_radius=5, block_size=5)
+    kpts, kscores, (m10, m01) = shi_tomasi_family._fused_detect_select(img, cfg, 4, True)
+    assert calls == [route]
+    masked, m10_p, m01_p = detect_frontend.detect_frontend_plain(img, 5, 15, 2.5, 5)
+    want = shi_tomasi_family._select_premasked(masked, cfg, 4)
+    assert torch.equal(kpts, want[0]) and torch.equal(kscores, want[1])
+    assert torch.equal(m10, m10_p) and torch.equal(m01, m01_p)

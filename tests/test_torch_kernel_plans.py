@@ -1,10 +1,11 @@
 """The host-side work plans of the port's CUDA kernels, and their C bindings.
 
 The Sinkhorn kernel's launch layout (``sinkhorn_plan``), the sampler's work
-plan (``sampler_plan``) and the AKAZE ladder's route and tiles
-(``ladder_plan``) are plain Python that needs no card, so their invariants
-are held here; so are the ctypes types of the entries the wrappers call,
-against the ``extern "C"`` signatures in ``csrc/``.
+plan (``sampler_plan``), the AKAZE ladder's route and tiles (``ladder_plan``)
+and the detect kernel's tiles (``detect_plan``) are plain Python that needs
+no card, so their invariants are held here; so are the ctypes types of the
+entries the wrappers call, against the ``extern "C"`` signatures in
+``csrc/``, and the build's digest of the sources and headers.
 """
 
 import ctypes
@@ -16,8 +17,9 @@ import pytest
 import torch
 
 from onnx_image_processing_tpu_torch import ops
-from onnx_image_processing_tpu_torch.kernels import (_build, akaze_ladder, select_frontend,
-                                                     sinkhorn_kernel, sparse_sampler)
+from onnx_image_processing_tpu_torch.kernels import (_build, akaze_ladder, detect_frontend,
+                                                     select_frontend, sinkhorn_kernel,
+                                                     sparse_sampler)
 
 CSRC = Path(sinkhorn_kernel.__file__).resolve().parents[1] / "csrc"
 
@@ -124,6 +126,67 @@ def test_ladder_plan_rejects_what_cannot_run():
         akaze_ladder.ladder_plan(1, 480, 640, half=16)
 
 
+@pytest.mark.parametrize("b,h,w", [(2, 480, 640), (1, 480, 640), (1, 1080, 1920),
+                                   (8, 480, 640), (2, 5, 300), (2, 97, 131), (1, 3, 9)])
+@pytest.mark.parametrize("rb,rn,half", [(2, 5, 7), (1, 5, 7), (1, 3, 7), (0, 0, 0),
+                                        (15, 15, 15), (3, 1, 4)])
+def test_detect_plan_tiles(b, h, w, rb, rn, half):
+    """Tiles of whole (rn+1)^2 NMS blocks that cover the image, a halo as
+    deep as the Sobel, box and NMS windows and the moments reach, and the
+    shared memory the kernel computes, within two CTAs per SM."""
+    plan = detect_frontend.detect_plan(b, h, w, rb, rn, half)
+    bs = rn + 1
+    assert plan.th % bs == 0 and plan.tw % bs == 0 and plan.th >= bs and plan.tw >= bs
+    assert plan.halo >= max(1 + rb + rn, half) and plan.halo == max(1 + rb + rn, half)
+    assert plan.ny == -(-h // plan.th) and plan.nx == -(-w // plan.tw)
+    assert (plan.ny - 1) * plan.th < h and (plan.nx - 1) * plan.tw < w   # no empty tile
+    assert plan.smem_bytes == 4 * detect_frontend._smem_floats(rb, rn, half, plan.th, plan.tw)
+    assert plan.smem_bytes <= detect_frontend.SMEM_TWO_CTAS <= detect_frontend.SMEM_LIMIT
+
+
+def test_detect_plan_fits_every_radius():
+    """The smallest tile (one NMS block) of every radius set up to 15 fits
+    two CTAs per SM, so the plan always finds a tile."""
+    for rb in range(16):
+        for rn in range(16):
+            for half in range(16):
+                bs = rn + 1
+                smem = 4 * detect_frontend._smem_floats(rb, rn, half, bs, bs)
+                assert smem <= detect_frontend.SMEM_TWO_CTAS, (rb, rn, half)
+
+
+@pytest.mark.parametrize("rb", [1, 2])
+def test_detect_plan_fills_the_card(rb):
+    """The pair at the flagship's radii: CTAs for every one of 132 SMs, in
+    one wave of two CTAs per SM, on tiles larger than 32 x 32."""
+    plan = detect_frontend.detect_plan(2, 480, 640, rb, 5, 7, sms=132)
+    ctas = 2 * plan.ny * plan.nx
+    assert 132 <= ctas <= 2 * 132
+    assert plan.th * plan.tw > 32 * 32
+
+
+def test_detect_plan_rejects_what_cannot_run():
+    for args in ((0, 480, 640, 2, 5, 7), (1, 0, 640, 2, 5, 7), (1, 480, 640, 16, 5, 7),
+                 (1, 480, 640, 2, 16, 7), (1, 480, 640, 2, 5, 16), (1, 480, 640, -1, 5, 7)):
+        with pytest.raises(ValueError):
+            detect_frontend.detect_plan(*args)
+
+
+def test_build_digest_covers_headers(tmp_path, monkeypatch):
+    """Editing a header that the sources include (select_topk.cuh) changes
+    the library's name, so the library is rebuilt, not loaded stale."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for f in CSRC.iterdir():
+        (csrc / f.name).write_bytes(f.read_bytes())
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    before = _build._digest()
+    assert _build._digest() == before
+    header = csrc / "select_topk.cuh"
+    header.write_bytes(header.read_bytes() + b"\n// edited\n")
+    assert _build._digest() != before
+
+
 def _table_groups(pairs):
     return ops.BADTable(ops.load_bad_params(pairs)).groups
 
@@ -172,7 +235,9 @@ def _c_params(source: str, name: str) -> list[str]:
     ("select_frontend.cu", "oip_select_frontend", select_frontend._ARGTYPES),
     ("select_frontend.cu", "oip_select_topk", select_frontend._TOPK_ARGTYPES),
     ("akaze_ladder.cu", "oip_akaze_ladder", akaze_ladder._ARGTYPES),
-    ("akaze_ladder.cu", "oip_akaze_ladder_resident", akaze_ladder._RESIDENT_ARGTYPES)])
+    ("akaze_ladder.cu", "oip_akaze_ladder_resident", akaze_ladder._RESIDENT_ARGTYPES),
+    ("detect_frontend.cu", "oip_detect_frontend", detect_frontend._ARGTYPES),
+    ("detect_frontend.cu", "oip_detect_select", detect_frontend._SELECT_ARGTYPES)])
 def test_wrapper_argtypes_match_c_entries(source, name, argtypes):
     """A pointer is passed as c_void_p, an int as c_int, a float as c_float,
     one for one: ctypes would otherwise cut pointers or shift arguments."""
