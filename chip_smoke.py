@@ -64,6 +64,19 @@ Phases (any failed check raises; nothing falls back to the CPU):
 9. The device functions of the three image CLIs on the card (counts,
    shapes, the 7-px shift), then the sampler's stage ablation
    (``tools.ablate_sampler``), its JSON lines printed.
+10. The rest of the op library and the serving layer, card vs CPU at the
+   sizes users run: FAST (defaults, and NMS radius 3) and DoG (5 scales, 39
+   taps; launches and ms per call) on the 480x640 pair; voxel downsampling
+   of 38,400 and 8,192 points (leaf 0.05) against a float64 oracle; Otsu
+   and 3-class multi-Otsu on a 480x640 uint8 image; point cloud, normals
+   and depth alignment of a 480x640 depth map (some projections in
+   [W - 0.5, W)); ``refine_keypoints_subpixel`` at the flagship's 512
+   keypoints; the feature-detection CLI's ``detect`` with ``fast`` and
+   ``dog_with_score``; then ``stream_map_chunked(models.build_batched(...))``
+   of the flagship over 22 pairs at chunk 1, 4, 8 and depth 1, 2, and
+   ``stream_map`` of its streaming extract at depth 1, 2, each held to the
+   per-pair sequential loop on the card, with pairs/s on the host clock
+   and the device launches per chunk.
 
 The last two lines are a JSON object of per-kernel results (each with its
 launches on the paths, launches per call of its path, error against its
@@ -97,6 +110,10 @@ ABLATE = "sparse_sampler_ablate"   # counted only by the ablation's own run
 # Tolerances on the card, kernel vs plain version.
 SAMPLER_ATOL = 1e-3     # box means of [0, 255] pixels
 SINKHORN_ATOL = 1e-5    # transport probabilities
+# The dustbin corner of P (the unmatched mass, ~N) on the served pairs:
+# float32 puts it ~5e-7 relative from float64, and two float32 sum orders
+# part there by up to ~1e-6 (phase 10 prints both); a factor 2 on that.
+SINKHORN_CORNER_RTOL = 2e-6
 MARGINAL_ATOL = 1e-3    # column sums after the final column sweep
 # The detect frontend (alone and as detect_select), the AKAZE ladder and the
 # select kernel are held to bit-identity.
@@ -123,6 +140,16 @@ ORIENTED_ATOL = 2e-3    # oriented map, sampler kernel vs gather (tests/test_bad
 HEAD_DESC_FRAC = 0.01   # head: share of common keypoints whose descriptors differ past DESC_ATOL
 SCORE_RTOL = 1e-5       # Shi-Tomasi score maps, card vs CPU, relative to the map's max
 CLI_COUNT_RTOL = 0.02   # CLI keypoint counts, card vs CPU
+# Phase 10, the rest of the op library and the serving layer (card vs CPU).
+DOG_ATOL = 1e-4         # DoG bands and score on [0, 255] images
+VOXEL_LEAF = 0.05
+VOXEL_ORACLE_ATOL = 2e-4  # centroids vs a float64 oracle (tests/test_aux_ops.py:212)
+OTSU_VAR_RTOL = 1e-6    # thresholds that part must be a near-tie of the between-class variance
+PCD_ATOL, NORMAL_ATOL = 1e-5, 1e-4
+REFINE_ATOL = 1e-5      # refined keypoints and scores
+SERVE_P_ATOL = 1e-5     # batched vs per-pair P (tests/test_parallel.py:246-248)
+SERVE_PAIRS, SERVE_CHUNKS, SERVE_DEPTHS = 22, (1, 4, 8), (1, 2)
+SERVE_REPS = 5          # timed streams per (chunk, depth)
 # Peak rates of one H100 SXM: HBM3 bandwidth and dense FP32 throughput.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
@@ -405,23 +432,12 @@ def run_clis(g_pair, c_pair) -> None:
     the card (image I/O and drawing need PIL, which is not needed here),
     with the CLIs' host post-processing."""
     from onnx_image_processing_tpu_torch import models
-    from onnx_image_processing_tpu_torch.cli import (feature_detection, image_matching,
-                                                     image_matching_extraction)
-    from onnx_image_processing_tpu_torch.utils import extract_matches, select_keypoints
+    from onnx_image_processing_tpu_torch.cli import image_matching, image_matching_extraction
+    from onnx_image_processing_tpu_torch.utils import extract_matches
 
     dev = g_pair[0].device
-    img1 = c_pair[0].numpy()
-    for name in ("shi_tomasi", "shi_tomasi_angle"):
-        sg = feature_detection.detect(models.build(name, device=dev), img1)
-        sc = feature_detection.detect(models.build(name, device="cpu"), img1)
-        kw = dict(threshold=0.01, max_keypoints=1000, nms_radius=3, subpixel=True)
-        ng, nc = len(select_keypoints(sg, **kw)), len(select_keypoints(sc, **kw))
-        print(f"[cli feature_detection {name}] score map {sg.shape}, keypoints: card {ng}, "
-              f"CPU {nc}")
-        check(sg.shape == (1, 1, H, W) and bool(np.isfinite(sg).all()),
-              f"[cli feature_detection {name}] score map")
-        check(ng > 0 and abs(ng - nc) <= CLI_COUNT_RTOL * nc,
-              f"[cli feature_detection {name}] keypoint counts {ng} vs {nc}")
+    cli_detect_counts("cli feature_detection", ("shi_tomasi", "shi_tomasi_angle"),
+                      g_pair[0], c_pair[0])
 
     t1, t2 = texture_pair()
     k1, k2, p = image_matching.match(models.build(FLAGSHIP, device=dev,
@@ -438,6 +454,351 @@ def run_clis(g_pair, c_pair) -> None:
               f"median dx {dx}, dy {dy}")
         check(len(a) > 0 and abs(dx - SHIFT_X) <= 1 and abs(dy) <= 1,
               f"[cli {label}] shift not recovered")
+
+
+def cli_detect_counts(label, names, g_img, c_img, max_keypoints: int = 1000) -> None:
+    """The feature-detection CLI's device function on the card and the CPU,
+    then its host selection (the CLI's defaults, ``-k max_keypoints``):
+    keypoint counts within CLI_COUNT_RTOL."""
+    from onnx_image_processing_tpu_torch import models
+    from onnx_image_processing_tpu_torch.cli import feature_detection
+    from onnx_image_processing_tpu_torch.utils import select_keypoints
+
+    img = c_img.numpy()
+    for name in names:
+        sg = feature_detection.detect(models.build(name, device=g_img.device), img)
+        sc = feature_detection.detect(models.build(name, device="cpu"), img)
+        kw = dict(threshold=0.01, max_keypoints=max_keypoints, nms_radius=3, subpixel=True)
+        ng, nc = len(select_keypoints(sg, **kw)), len(select_keypoints(sc, **kw))
+        print(f"[{label} {name}] score map {sg.shape}, keypoints: card {ng}, CPU {nc}")
+        check(sg.shape == (1, 1, H, W) and bool(np.isfinite(sg).all()),
+              f"[{label} {name}] score map")
+        check(ng > 0 and abs(ng - nc) <= CLI_COUNT_RTOL * nc,
+              f"[{label} {name}] keypoint counts {ng} vs {nc}")
+
+
+def voxel_f64_oracle(pts: np.ndarray, leaf: float):
+    """Centroids per voxel in sorted-key order, float64 (the JAX test's
+    ``_voxel_f64_oracle``, tests/test_aux_ops.py)."""
+    vox = np.floor(pts.astype(np.float64) / leaf).astype(np.int64)
+    vox -= vox.min(0)
+    vmax = vox.max(0)
+    key = vox[:, 0]
+    for a in range(1, pts.shape[1]):
+        key = key * (vmax[a] + 1) + vox[:, a]
+    order = np.argsort(key, kind="stable")
+    sk, sp = key[order], pts.astype(np.float64)[order]
+    _, start = np.unique(sk, return_index=True)
+    ends = np.append(start[1:], len(sk))
+    return np.stack([sp[s:e].mean(0) for s, e in zip(start, ends)])
+
+
+def between_class_variance(hist: np.ndarray, thresholds) -> float:
+    """sum_{i<j} n_i n_j (mu_i - mu_j)^2 (float64) of the classes that end
+    at each threshold's bin (bin values 0, 1, ...)."""
+    edges = [0] + [int(t) + 1 for t in thresholds] + [len(hist)]
+    vals = np.arange(len(hist), dtype=np.float64)
+    n = [hist[a:b].sum() for a, b in zip(edges[:-1], edges[1:])]
+    mu = [(hist[a:b] * vals[a:b]).sum() / max(k, 1) for a, b, k in zip(edges[:-1], edges[1:], n)]
+    return float(sum(n[i] * n[j] * (mu[i] - mu[j]) ** 2
+                     for i in range(len(n)) for j in range(i + 1, len(n))))
+
+
+def run_ops(g_pair, c_pair) -> None:
+    """Phase 10, first half: FAST, DoG, voxel downsampling, Otsu, the depth
+    ops and the in-graph sub-pixel refinement, card vs CPU on the same
+    inputs; the CLI's detect with FAST and DoG. None of them launches a
+    hand kernel (checked)."""
+    import torch
+    from onnx_image_processing_tpu_torch import models, ops
+    from onnx_image_processing_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from onnx_image_processing_tpu_torch.tools.kernel_times import device_launches
+
+    dev = g_pair[0].device
+    both_g, both_c = torch.cat(g_pair), torch.cat(c_pair)
+    reset_launch_counts()
+    for kw in ({}, dict(fast_use_nms=True, fast_nms_radius=3)):
+        fg = models.build("fast", device=dev, **kw)(both_g)
+        fc = models.build("fast", device="cpu", **kw)(both_c)
+        same = torch.equal(fg.cpu(), fc)
+        print(f"[fast {kw or 'defaults'}] {tuple(fg.shape)}: corners card "
+              f"{int(fg.sum())}, CPU {int(fc.sum())}, maps equal {same}")
+        check(same and fc.sum() > 0, f"[fast {kw}] card and CPU maps differ")
+
+    for name in ("dog", "dog_with_score"):
+        head = models.build(name, device=dev)
+        g = head(both_g)
+        c = models.build(name, device="cpu")(both_c)
+        err = (g.cpu() - c).abs().max().item()
+        times = [synced_ms(lambda: head(both_g))[0] for _ in range(5)]
+        print(f"[{name}] {tuple(g.shape)}: card vs CPU max abs diff {err:.3e} (max {DOG_ATOL}); "
+              f"{np.median(times):.3f} ms per call (median of 5, host clock around a "
+              f"synchronized call), {device_launches(lambda: head(both_g))} device launches "
+              f"per call")
+        check(err <= DOG_ATOL, f"[{name}] card and CPU differ by {err}")
+
+    rng = np.random.default_rng(3)
+    for n in (38400, models.VOXEL_EXPORT_POINTS):
+        pts = rng.uniform(-3, 3, (n, 3)).astype(np.float32)
+        fg, fcpu = models.build("voxel_downsampling", device=dev), \
+            models.build("voxel_downsampling", device="cpu")
+        p_g, leaf_g = torch.from_numpy(pts).to(dev), torch.tensor(np.float32(VOXEL_LEAF), device=dev)
+        out_g, mask_g = fg(p_g, leaf_g)
+        out_c, mask_c = fcpu(torch.from_numpy(pts), torch.tensor(np.float32(VOXEL_LEAF)))
+        oracle = voxel_f64_oracle(pts, VOXEL_LEAF)
+        m = int(mask_c.sum())
+        same_mask = torch.equal(mask_g.cpu(), mask_c)
+        ms = np.median([synced_ms(lambda: fg(p_g, leaf_g))[0] for _ in range(5)])
+        err_g = float(np.abs(out_g.cpu().numpy()[:m] - oracle[:m]).max()) if m == len(oracle) else np.inf
+        err_c = float(np.abs(out_c.numpy()[:m] - oracle[:m]).max()) if m == len(oracle) else np.inf
+        print(f"[voxel N={n}] M card {int(mask_g.sum())}, CPU {m}, oracle {len(oracle)}; masks "
+              f"equal {same_mask}; centroids vs the float64 oracle: card {err_g:.3e}, CPU "
+              f"{err_c:.3e} (max {VOXEL_ORACLE_ATOL}); {ms:.3f} ms per call on the card")
+        check(same_mask and m == len(oracle) and err_g <= VOXEL_ORACLE_ATOL,
+              f"[voxel N={n}] mask, M or centroids")
+
+    gray = np.clip(np.round(c_pair[0].numpy()[0, 0]), 0, 255).astype(np.uint8)
+    hist = np.bincount(gray.reshape(-1), minlength=256).astype(np.float64)
+    img_g, img_c = torch.from_numpy(gray).to(dev), torch.from_numpy(gray)
+    for label, fn, bins in (
+            ("otsu", lambda x: (ops.otsu_threshold(x, 0, 255)[0],), 256),
+            ("multi-otsu n_class=3", lambda x: ops.multi_otsu_threshold(x, 0, 255, n_class=3), 255)):
+        tg = [int(t) for t in fn(img_g)]
+        tc = [int(t) for t in fn(img_c)]
+        vg, vc = between_class_variance(hist[:bins], tg), between_class_variance(hist[:bins], tc)
+        print(f"[{label}] {gray.shape} uint8: thresholds card {tg}, CPU {tc}; between-class "
+              f"variance card {vg:.10e}, CPU {vc:.10e}")
+        check(tg == tc or abs(vg - vc) <= OTSU_VAR_RTOL * max(vg, vc),
+              f"[{label}] thresholds part and are not a near-tie")
+    _, bin_g = ops.otsu_threshold(img_g, 0, 255)
+    check(torch.equal(bin_g.cpu(), ops.otsu_threshold(img_c, 0, 255)[1]), "[otsu] binarized images")
+
+    depth = np.random.default_rng(5).uniform(0.5, 3.0, (H, W)).astype(np.float32)
+    d_g, d_c = torch.from_numpy(depth).to(dev), torch.from_numpy(depth)
+    intr = dict(cx=W / 2, cy=H / 2, fx=500.0, fy=500.0)
+    (pg, ng), (pc, nc) = (ops.depth_to_pointcloud_with_normal(d, **intr) for d in (d_g, d_c))
+    p_err, n_err = (pg.cpu() - pc).abs().max().item(), (ng.cpu() - nc).abs().max().item()
+    rot, trans = torch.eye(3), torch.tensor([0.005, 0.005, 0.0])
+    align = dict(width=W, height=H, depth_cx=W / 2, depth_cy=H / 2, depth_fx=500.0,
+                 depth_fy=500.0, rgb_cx=W / 2, rgb_cy=H / 2, rgb_fx=500.0, rgb_fy=500.0)
+    a_g = ops.depth_alignment(d_g, rot.to(dev), trans.to(dev), **align)
+    a_c = ops.depth_alignment(d_c, rot, trans, **align)
+    px, _ = ops.points_to_pixels(ops.transform_points(pc.reshape(-1, 3), rot, trans),
+                                 W / 2, H / 2, 500.0, 500.0)
+    edge = int(((px >= W - 0.5) & (px < W)).sum())
+    same = torch.equal(a_g.cpu(), a_c)
+    print(f"[depth] {H}x{W}: point cloud card vs CPU {p_err:.3e} (max {PCD_ATOL}), normals "
+          f"{n_err:.3e} (max {NORMAL_ATOL}); alignment equal {same} ({edge} projections in "
+          f"[W - 0.5, W), {int((a_c > 0).sum())} pixels filled)")
+    check(p_err <= PCD_ATOL and n_err <= NORMAL_ATOL, "[depth] point cloud or normals")
+    check(same and edge > 0, "[depth] alignment differs, or no projection tests the edge")
+
+    scores = ops.shi_tomasi_score(both_c, 5)[:, 0]
+    kpts, ks = ops.nms_select_topk(scores, MAX_KEYPOINTS, 0.0, 16, nms_radius=5)
+    rg = [t.cpu() for t in ops.refine_keypoints_subpixel(scores.to(dev), kpts.to(dev), ks.to(dev))]
+    rc = ops.refine_keypoints_subpixel(scores, kpts, ks)
+    r_err = max((a - b).abs().max().item() for a, b in zip(rg, rc))
+    moved = int((rc[0] != kpts).any(-1).sum())
+    print(f"[refine] {tuple(kpts.shape)} keypoints ({moved} moved): card vs CPU max abs diff "
+          f"{r_err:.3e} (max {REFINE_ATOL})")
+    check(r_err <= REFINE_ATOL and moved > 0, f"[refine] card and CPU differ by {r_err}")
+
+    # The texture (the pair's smooth lattice gives FAST few corners), with a
+    # top-k past the count so the counts are the detectors'.
+    tex = torch.from_numpy(texture_pair()[0])
+    cli_detect_counts("cli feature_detection", ("fast", "dog_with_score"), tex.to(dev), tex,
+                      max_keypoints=H * W)
+    counts = launch_counts()
+    check(not any(counts.values()), f"[phase 10 ops] a hand kernel was launched: {counts}")
+
+
+def run_serving(dev, paths: dict, results: dict) -> None:
+    """Phase 10, second half: the flagship served by
+    ``stream_map_chunked(models.build_batched(...))`` over SERVE_PAIRS pairs
+    at each (chunk, depth), and ``stream_map`` of its streaming extract,
+    each against the per-pair sequential loop on the card; pairs/s on the
+    host clock (host stacking and copies included), launches per chunk.
+    Adds the counted serving runs to ``paths`` and each kernel's launches per
+    chunk of 4 to ``results``."""
+    import torch
+    from onnx_image_processing_tpu_torch import models, ops
+    from onnx_image_processing_tpu_torch.core import full_fp32
+    from onnx_image_processing_tpu_torch.kernels import (launch_counts, reset_launch_counts,
+                                                         select_frontend, sinkhorn_kernel,
+                                                         sparse_sampler)
+    from onnx_image_processing_tpu_torch.ops import sinkhorn as sinkhorn_ops
+    from onnx_image_processing_tpu_torch.models.shi_tomasi_family import _sparse_detect_describe
+    from onnx_image_processing_tpu_torch.parallel import stream_map, stream_map_chunked
+    from onnx_image_processing_tpu_torch.tools.kernel_times import device_launches
+
+    pairs = [texture_pair(100 + i) for i in range(SERVE_PAIRS)]
+    fn = models.build(FLAGSHIP, max_keypoints=MAX_KEYPOINTS, device=dev)
+    seq = [tuple(t.cpu().numpy()[0] for t in fn(torch.from_numpy(a).to(dev),
+                                                  torch.from_numpy(b).to(dev)))
+           for a, b in pairs]
+    extract, _ = models.build_streaming(FLAGSHIP, max_keypoints=MAX_KEYPOINTS, device=dev)
+    seq_ext = [tuple(t.cpu().numpy() for t in extract(torch.from_numpy(a).to(dev)))
+               for a, _ in pairs]
+
+    def compare(label, out, want, p_index):
+        check(len(out) == len(want), f"[{label}] {len(out)} results for {len(want)} inputs")
+        kpt_same = all(np.array_equal(o[0], w[0]) for o, w in zip(out, want))
+        if p_index == 2:
+            kpt_same = kpt_same and all(np.array_equal(o[1], w[1]) for o, w in zip(out, want))
+        err = max(float(np.abs(o[i] - w[i]).max()) for o, w in zip(out, want)
+                  for i in range(p_index, len(w)))
+        check(kpt_same and err <= SERVE_P_ATOL,
+              f"[{label}] keypoints equal {kpt_same}, max abs diff {err:.3e}")
+        return err
+
+    # The Sinkhorn kernel gives each entry the same P whatever batch shares
+    # its launch (the plan changes with B): the first 8 pairs' log-scores at
+    # B = 8 and one at a time.
+    both = torch.cat([torch.from_numpy(np.concatenate([p[i] for p in pairs[:8]])).to(dev)
+                      for i in (0, 1)])
+    _, _, desc = _sparse_detect_describe(both, fn.cfg, fn.table)
+    sk = ops.sinkhorn_inputs(desc[:8], desc[8:], fn.cfg.epsilon, fn.cfg.unused_score)
+    iters = fn.cfg.sinkhorn_iterations
+    p8 = sinkhorn_kernel.sinkhorn_core(*sk, iters)
+    same = all(torch.equal(p8[i:i + 1], sinkhorn_kernel.sinkhorn_core(
+        *(t[i:i + 1].contiguous() for t in sk), iters)) for i in range(8))
+    print(f"[serving] sinkhorn kernel at B = 8 ({sinkhorn_kernel.device_plan(513, 513, dev, 8)}) "
+          f"vs each entry alone: bit-identical {same}")
+    check(same, "[serving] the Sinkhorn kernel's P depends on the batch")
+
+    # The served path's three kernels against their plain versions at its
+    # shapes: Sinkhorn at B = 4 and 8 (plans whose lines share fewer warps
+    # than at B = 1), select and the sampler on the chunk-8 stack of 16.
+    # P's dustbin corner holds the unmatched mass (~500 here, a float32 ulp
+    # 3e-5) and is held relatively; every other entry (<= 1) absolutely.
+    for b in (4, 8):
+        args = (*(t[:b].contiguous() for t in sk), iters)
+        p_k = sinkhorn_kernel.sinkhorn_core(*args)
+        p_p = sinkhorn_kernel.sinkhorn_core_plain(*args)
+        p64 = sinkhorn_kernel.sinkhorn_core_plain(*(t.double() for t in args[:3]), iters)
+        diff = (p_k - p_p).abs()
+        corner_rel = (diff[:, -1, -1] / p_p[:, -1, -1]).max().item()
+        rest = diff.clone()
+        rest[:, -1, -1] = 0
+        err = rest.max().item()
+        rel64 = [((p[:, -1, -1].double() - p64[:, -1, -1]).abs() / p64[:, -1, -1]).max().item()
+                 for p in (p_k, p_p)]
+        print(f"[serving] sinkhorn B = {b} ({sinkhorn_kernel.device_plan(513, 513, dev, b)}) vs "
+              f"plain: max abs err {err:.3e} (max {SINKHORN_ATOL}) off the dustbin corner, "
+              f"corner {diff[:, -1, -1].max().item():.3e}, relative {corner_rel:.3e} (max "
+              f"{SINKHORN_CORNER_RTOL}); corner relative to float64: kernel {rel64[0]:.3e}, "
+              f"plain {rel64[1]:.3e}")
+        check(err <= SINKHORN_ATOL and corner_rel <= SINKHORN_CORNER_RTOL,
+              f"[serving] sinkhorn B = {b}: error {err}, corner relative {corner_rel}")
+        results["sinkhorn"]["max_abs_err"] = max(results["sinkhorn"]["max_abs_err"],
+                                                 diff.max().item())
+    cfg, table = fn.cfg, fn.table
+    scores = ops.shi_tomasi_score(both, cfg.block_size)[:, 0].contiguous()
+    sel = (cfg.nms_radius, cfg.max_keypoints, cfg.score_threshold, table.max_radius)
+    kp_k, ks_k = select_frontend.nms_select_blocks(scores, *sel)
+    kp_p, ks_p = select_frontend.nms_select_blocks_plain(scores, *sel)
+    same_sel = torch.equal(kp_k, kp_p) and torch.equal(ks_k, ks_p)
+    mm = ops.angle_moments(both, patch_size=cfg.patch_size, sigma=cfg.sigma)
+    smp = (*ops.box_sample_inputs(both, kp_k, table, mm), table.sample_radius, table.groups,
+           56, table.max_radius)
+    s_k, s_p = sparse_sampler.box_sample(*smp), sparse_sampler.box_sample_plain(*smp)
+    same_smp = torch.equal(s_k, s_p)
+    print(f"[serving] select {tuple(scores.shape)}, top {cfg.max_keypoints}: bit-identical to "
+          f"plain {same_sel} ({int((ks_k > 0).sum())} valid); sampler {tuple(s_k.shape)}: "
+          f"bit-identical {same_smp}")
+    check(same_sel, "[serving] select not bit-identical on the 16-image stack")
+    check(same_smp, "[serving] sampler not bit-identical on the 16-image stack")
+    results["select_frontend"]["max_abs_err"] = max(
+        results["select_frontend"]["max_abs_err"], (kp_k - kp_p).abs().max().item(),
+        (ks_k - ks_p).abs().max().item())
+    results["sparse_sampler"]["max_abs_err"] = max(
+        results["sparse_sampler"]["max_abs_err"], (s_k - s_p).abs().max().item())
+
+    fb = models.build_batched(FLAGSHIP, max_keypoints=MAX_KEYPOINTS, device=dev)
+    reset_launch_counts()
+    for chunk in SERVE_CHUNKS:
+        for depth in SERVE_DEPTHS:
+            list(stream_map_chunked(fb, pairs[:2 * chunk], chunk, depth))   # warm-up
+            rates = []
+            for rep in range(SERVE_REPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = list(stream_map_chunked(fb, pairs, chunk, depth))
+                rates.append(SERVE_PAIRS / (time.perf_counter() - t0))
+                if rep == 0:
+                    err = compare(f"serving chunk {chunk} depth {depth}", out, seq, 2)
+            print(f"[serving] stream_map_chunked(build_batched({FLAGSHIP})) chunk {chunk}, depth "
+                  f"{depth}: {np.median(rates):.2f} pairs/s (median of {SERVE_REPS} streams of "
+                  f"{SERVE_PAIRS} pairs, {min(rates):.2f}..{max(rates):.2f}; host clock, host "
+                  f"stacking and copies included); keypoints equal to the per-pair loop, P max "
+                  f"abs diff {err:.3e} (max {SERVE_P_ATOL})")
+    for depth in SERVE_DEPTHS:
+        rates = []
+        for rep in range(SERVE_REPS):
+            frames = (a for a, _ in pairs)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = list(stream_map(lambda a: extract(torch.from_numpy(a).to(dev)), frames, depth))
+            rates.append(SERVE_PAIRS / (time.perf_counter() - t0))
+            if rep == 0:
+                err = compare(f"stream_map extract depth {depth}", out, seq_ext, 1)
+        print(f"[serving] stream_map(extract) depth {depth}: {np.median(rates):.2f} images/s "
+              f"(median of {SERVE_REPS}, {min(rates):.2f}..{max(rates):.2f}); keypoints equal "
+              f"to the sequential loop, scores and descriptors max abs diff {err:.3e}")
+    torch.cuda.synchronize()
+    paths["serving"] = launch_counts()
+    check_counts("serving", paths["serving"],
+                 set(paths["serving"]) - {"detect_frontend", "akaze_ladder", ABLATE})
+
+    a4, b4 = (torch.from_numpy(np.concatenate([p[i] for p in pairs[:4]])).to(dev) for i in (0, 1))
+    reset_launch_counts()
+    fb(a4, b4)
+    torch.cuda.synchronize()
+    per_chunk = launch_counts()
+    print(f"[serving] one chunk of 4 pairs: launches {json.dumps(per_chunk, sort_keys=True)}, "
+          f"{device_launches(lambda: fb(a4, b4))} device kernels")
+    for name, c in per_chunk.items():
+        if name in results:
+            results[name]["launches_per_chunk_of_4_serving"] = c
+
+    # What the per-entry cost (ops/sinkhorn.py _cost_matrix) costs the
+    # served rate: the batched product it replaced, swapped in for this
+    # measurement only, the two alternating stream by stream.
+    per_entry = sinkhorn_ops._cost_matrix
+
+    def batched_cost(desc1, desc2, distance_type):
+        n1 = torch.sum(desc1 * desc1, dim=-1, keepdim=True)
+        n2 = torch.sum(desc2 * desc2, dim=-1, keepdim=True)
+        with full_fp32():
+            dots = torch.matmul(desc1, desc2.transpose(-2, -1))
+        return torch.clamp_min(n1 + n2.transpose(-2, -1) - 2.0 * dots, 0.0)
+
+    for chunk in SERVE_CHUNKS[1:]:
+        rates = {per_entry: [], batched_cost: []}
+        try:
+            for cost in (per_entry, batched_cost):   # warm-up
+                sinkhorn_ops._cost_matrix = cost
+                list(stream_map_chunked(fb, pairs[:chunk], chunk, 2))
+            for rep in range(2 * SERVE_REPS):
+                for cost in ((per_entry, batched_cost) if rep % 2 else (batched_cost, per_entry)):
+                    sinkhorn_ops._cost_matrix = cost
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    out = list(stream_map_chunked(fb, pairs, chunk, 2))
+                    rates[cost].append(SERVE_PAIRS / (time.perf_counter() - t0))
+                    if cost is batched_cost:
+                        out_batched = out
+        finally:
+            sinkhorn_ops._cost_matrix = per_entry
+        diff = [np.abs(o[2] - w[2]) for o, w in zip(out_batched, seq)]
+        corner = max(float(d[-1, -1] / w[2][-1, -1]) for d, w in zip(diff, seq))
+        for d in diff:
+            d[-1, -1] = 0
+        print(f"[serving] cost per entry vs batched, chunk {chunk} depth 2: "
+              f"{np.median(rates[per_entry]):.2f} vs {np.median(rates[batched_cost]):.2f} "
+              f"pairs/s (median of {2 * SERVE_REPS} alternating streams each); the batched "
+              f"product's P from the per-pair loop: max abs diff off the dustbin corner "
+              f"{max(float(d.max()) for d in diff):.3e}, corner relative {corner:.3e}")
 
 
 def bound(nbytes: float, ops: float) -> dict:
@@ -1080,6 +1441,12 @@ def main() -> None:
                        sampler_ops(*abl_args[3].shape[:2], abl_args[5])),
     }
 
+    # ---- phase 10: the rest of the op library, the serving layer ------------
+    t10 = time.perf_counter()
+    run_ops((g1, g2), (c1, c2))
+    run_serving(dev, paths, results)
+    print(f"phase 10: {time.perf_counter() - t10:.2f} s")
+
     sources = {"select_frontend": ("select_frontend.cu", "kernels/select_frontend.py:329", "flagship"),
                "sparse_sampler": ("sparse_sampler.cu", "kernels/sparse_sampler.py:411", "flagship"),
                "sinkhorn": ("sinkhorn.cu", "kernels/sinkhorn_kernel.py:111", "flagship"),
@@ -1100,7 +1467,7 @@ def main() -> None:
             "launches": launches[name],
             "launches_per_call": ablate_per_call if name == ABLATE else paths[path][name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
-            **{k: v for k, v in r.items() if k.startswith("device")},
+            **{k: v for k, v in r.items() if k.startswith(("device", "launches_per_chunk"))},
             **r["bound"],
             **{f"{k}_select": v for k, v in r.get("bound_select", {}).items()},
             "library_ms": None})

@@ -7,8 +7,11 @@ variant, the unoriented, dense-descriptor and AKAZE matchers, and the
 flagship and AKAZE essential-matrix pipelines (``geometry/``), each with
 mutual-NN extraction and a streaming split (``models.build_streaming``) for
 sequential frames; beside them the single-image heads (score, angle, dense
-BAD maps, keypoints with descriptors). ``cli/`` holds the feature
-detection, image matching and VO apps. Around them are hand-written CUDA
+BAD maps, keypoints with descriptors), FAST, DoG and voxel downsampling,
+and the rest of the JAX package's op library (``ops/``). ``parallel/``
+serves streams of pairs through ``models.build_batched`` with host I/O
+overlapped with the card. ``cli/`` holds the feature detection, image
+matching and VO apps. Around them are hand-written CUDA
 kernels in ``csrc/`` (select frontend, sparse sampler and its stage
 ablation, Sinkhorn sweeps, detect frontend, AKAZE ladder). Each kernel has
 a plain PyTorch version beside it: a CUDA tensor goes to the kernel, a CPU

@@ -22,12 +22,11 @@ from .. import models
 from ..utils import select_keypoints, visualize_keypoints
 from .common import add_device_arg, load_image, report_benchmark, select_device
 
-# Detector flags of pipelines the port does not have yet.
-_UNPORTED_FLAGS = ("fast_threshold", "fast_use_nms", "fast_nms_radius",
+# Detector hyperparameter flags, passed as flat config overrides.
+_DETECTOR_FLAGS = ("fast_threshold", "fast_use_nms", "fast_nms_radius",
                    "dog_num_scales", "dog_sigma_base", "dog_sigma_ratio",
-                   "dog_kernel_size")
-_AKAZE_FLAGS = ("akaze_threshold", "akaze_kappa", "akaze_num_scales",
-                "akaze_diffusion_iterations")
+                   "dog_kernel_size", "akaze_threshold", "akaze_kappa",
+                   "akaze_num_scales", "akaze_diffusion_iterations")
 
 
 def parse_args(argv=None):
@@ -53,11 +52,10 @@ def parse_args(argv=None):
                    help="print warmup+timed ms/frame")
     g = p.add_argument_group("detector hyperparameters")
     g.add_argument("--fast-threshold", type=float, default=None,
-                   help="FAST intensity threshold (FAST is not ported yet)")
+                   help="FAST intensity threshold (default 20)")
     g.add_argument("--fast-use-nms", action="store_const", const=True, default=None)
     g.add_argument("--fast-nms-radius", type=int, default=None)
-    g.add_argument("--dog-num-scales", type=int, default=None,
-                   help="DoG options (DoG is not ported yet)")
+    g.add_argument("--dog-num-scales", type=int, default=None)
     g.add_argument("--dog-sigma-base", type=float, default=None)
     g.add_argument("--dog-sigma-ratio", type=float, default=None)
     g.add_argument("--dog-kernel-size", type=int, default=None)
@@ -66,17 +64,12 @@ def parse_args(argv=None):
     g.add_argument("--akaze-num-scales", type=int, default=None)
     g.add_argument("--akaze-diffusion-iterations", type=int, default=None)
     add_device_arg(p)
-    args = p.parse_args(argv)
-    given = [k for k in _UNPORTED_FLAGS if getattr(args, k) is not None]
-    if given:
-        p.error(f"{', '.join('--' + k.replace('_', '-') for k in given)}: the FAST "
-                "and DoG detectors are not ported yet")
-    return args
+    return p.parse_args(argv)
 
 
 def detector_overrides(args) -> dict:
-    """Non-None AKAZE flags as flat config overrides (akaze_*)."""
-    return {k: getattr(args, k) for k in _AKAZE_FLAGS if getattr(args, k) is not None}
+    """Non-None detector flags as flat config overrides (fast_*/dog_*/akaze_*)."""
+    return {k: getattr(args, k) for k in _DETECTOR_FLAGS if getattr(args, k) is not None}
 
 
 def detect(fn: nn.Module, image: np.ndarray) -> np.ndarray:

@@ -49,9 +49,10 @@
 // this chain: when n1 != m1 some CTAs own rows but no columns or the
 // reverse, and none of them would publish after its read. A spin that
 // outlasts any real wait traps, so a broken chain is an error, not a hang.
-// A line is split over a group of warps (16 / lines of them), whose
-// partial max and sum meet in shared memory in a fixed order, so the result
-// does not change from run to run. Rows or columns that do not fit in
+// A line is split over a group of warps (a power of two, up to 16 / lines),
+// whose partial max and sum meet in shared memory in one fixed order for
+// every group size (see kSlots), so the result changes neither from run to
+// run nor with the batch an entry shares the launch with. Rows or columns that do not fit in
 // shared memory (past ~1800 x 1800 at one entry) are read from device
 // memory on each sweep: one code path.
 // Measured (NVIDIA H100 80GB HBM3, 700 W, device time of a CUDA-graph
@@ -122,11 +123,20 @@ __device__ __forceinline__ void gather(float* vec, const unsigned long long* fro
   __syncthreads();
 }
 
+// A line's sum of exponentials runs over kSlots slots (element e in slot
+// e % kSlots), summed in the same order whatever number of warps shares the
+// line, so that a batch entry's P does not depend on the plan (the lines
+// per CTA change with the batch): each slot adds its elements in order, a
+// warp butterfly adds 32 slots (a quarter), and the four quarters meet as
+// (S0 + S1) + (S2 + S3).
+constexpr int kQuarters = 4;
+constexpr int kSlots = 32 * kQuarters;
+
 // One sweep's LSEs over `count` lines of `len` entries, line l starting at
 // line_ptr(l) with its entries `stride` apart: marg[l] - LSE(line + vec),
 // published to out[l] with `tag` (and kept in own[l] if own is given).
-// Lines are dealt to groups of `gw` warps; every thread of the CTA must
-// call it (it holds __syncthreads).
+// Lines are dealt to groups of `gw` warps (a power of two); every thread of
+// the CTA must call it (it holds __syncthreads).
 template <typename LinePtr>
 __device__ void lse_lines(LinePtr line_ptr, int count, int len, const float* vec,
                           const float* __restrict__ marg, unsigned long long* out,
@@ -153,18 +163,33 @@ __device__ void lse_lines(LinePtr line_ptr, int count, int len, const float* vec
       for (int k = 1; k < gw; ++k) m = fmaxf(m, red[g * gw + k]);
       m = lse_max(m);
     }
-    float s = 0.f;
-    if (live)
-      for (int e = tg; e < len; e += span) s += expf((line[(size_t)e * stride] + vec[e]) - m);
-    s = warp_sum(s);
-    if (lane == 0) red[kWarps + warp] = s;
+    // The sum, in one order for every gw: slot quarter w of this warp's
+    // share sums its elements in order, a butterfly sums its 32 slots, and
+    // the quarters meet as (S0 + S1) + (S2 + S3).
+    float part = 0.f;
+    if (live) {
+      const int per = gw >= kQuarters ? (wg < kQuarters ? 1 : 0) : kQuarters / gw;
+      const int w0 = gw >= kQuarters ? wg : wg * per;
+      float q[kQuarters] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int i = 0; i < kQuarters; ++i) {
+        if (i >= per) break;
+        float acc = 0.f;
+        for (int e = (w0 + i) * 32 + lane; e < len; e += kSlots)
+          acc += expf((line[(size_t)e * stride] + vec[e]) - m);
+        q[i] = warp_sum(acc);
+      }
+      part = per == 4 ? (q[0] + q[1]) + (q[2] + q[3]) : per == 2 ? q[0] + q[1]
+           : per == 1 ? q[0] : 0.f;
+    }
+    if (lane == 0) red[kWarps + warp] = part;
     __syncthreads();
     if (live && tg == 0) {
-      s = red[kWarps + g * gw];
-      for (int k = 1; k < gw; ++k) s += red[kWarps + g * gw + k];
-      const float r = marg[l] - (logf(s) + m);
-      publish(out + l, r, tag);
-      if (own != nullptr) own[l] = r;
+      const float* r = red + kWarps + g * gw;
+      const float s = gw == 1 ? r[0] : gw == 2 ? r[0] + r[1] : (r[0] + r[1]) + (r[2] + r[3]);
+      const float r_out = marg[l] - (logf(s) + m);
+      publish(out + l, r_out, tag);
+      if (own != nullptr) own[l] = r_out;
     }
   }
 }
@@ -185,8 +210,9 @@ sinkhorn_grid_kernel(const float* __restrict__ ls, const float* __restrict__ log
   float* vec = colslab + (size_t)res_cols * n1;   // max(n1, m1)
   float* red = vec + max(n1, m1);                 // 2 x kWarps
   float* own_u = red + 2 * kWarps;                // lines
-  // Warps per line: all 16 warps share the CTA's lines.
-  const int gw = max(1, kWarps / max(lines, 1));
+  // Warps per line, a power of two: the CTA's 16 warps share its lines.
+  int gw = 1;
+  while (2 * gw * max(lines, 1) <= kWarps) gw *= 2;
   // Tags run 1..iters for each entry: clear those of the last launch first.
   const size_t first = ((size_t)blockIdx.y * gridDim.x + k) * kThreads + tid;
   const size_t step = (size_t)gridDim.x * gridDim.y * kThreads;

@@ -1,6 +1,7 @@
 """Pipelines of the port, their registry and their streaming split."""
 
-from .registry import PipelineSpec, Standalone, TableHead, build, get, names
+from .registry import (VOXEL_EXPORT_POINTS, Batched, PipelineSpec, Standalone,
+                       TableHead, build, build_batched, get, names)
 from .shi_tomasi_family import (ShiTomasiAngleSparseBADSinkhorn,
                                 ShiTomasiAngleSparseBADSinkhornWithFilters,
                                 ShiTomasiBADSinkhorn, ShiTomasiSparseBADSinkhorn,
@@ -17,7 +18,8 @@ from .essential_family import (AKAZESparseBADSinkhornEssential,
                                essential_from_match)
 from .streaming import build_streaming, streaming_names, supports_streaming
 
-__all__ = ["PipelineSpec", "Standalone", "TableHead", "build", "get", "names",
+__all__ = ["VOXEL_EXPORT_POINTS", "Batched", "PipelineSpec", "Standalone", "TableHead",
+           "build", "build_batched", "get", "names",
            "SparseMatcher", "ShiTomasiAngleSparseBADSinkhorn", "ShiTomasiSparseBADSinkhorn",
            "ShiTomasiAngleSparseBADSinkhornWithFilters", "ShiTomasiBADSinkhorn",
            "shi_tomasi_with_angle", "shi_tomasi_bad_detect",

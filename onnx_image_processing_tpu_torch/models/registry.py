@@ -1,14 +1,16 @@
 """Pipeline registry of the port: name -> module on a device.
 
-The ported matchers (flagship, its with-filters variant, the unoriented and
-the dense-descriptor matchers, AKAZE, the two essential-matrix pipelines),
-their ``_extraction`` wrappers, the single-image heads (``shi_tomasi``,
-``shi_tomasi_angle``, ``shi_tomasi_bad``, ``shi_tomasi_angle_sparse_bad``,
-``bad``, ``akaze``) and the standalone ``sinkhorn`` and
-``essential_matrix_estimator``, each with the JAX registry's defaults: the
-reference's export defaults (flagship: 512 hard-binarized pairs, eps 0.05,
-nms radius 5, Shi-Tomasi block 5; AKAZE matcher: 512 unbinarized pairs,
-1024 keypoints, eps 0.05, nms radius 3).
+The JAX registry's 24 names: the matchers (flagship, its with-filters
+variant, the unoriented and the dense-descriptor matchers, AKAZE, the two
+essential-matrix pipelines), their ``_extraction`` wrappers, the
+single-image heads (``shi_tomasi``, ``shi_tomasi_angle``,
+``shi_tomasi_bad``, ``shi_tomasi_angle_sparse_bad``, ``bad``, ``akaze``,
+``fast``, ``dog``, ``dog_with_score``) and the standalone ``sinkhorn``,
+``essential_matrix_estimator`` and ``voxel_downsampling``, each with the
+JAX registry's defaults: the reference's export defaults (flagship: 512
+hard-binarized pairs, eps 0.05, nms radius 5, Shi-Tomasi block 5; AKAZE
+matcher: 512 unbinarized pairs, 1024 keypoints, eps 0.05, nms radius 3).
+:func:`build_batched` serves B pairs of a two-image matcher in one call.
 """
 
 from __future__ import annotations
@@ -22,7 +24,8 @@ from torch import nn
 
 from ..core import MatcherConfig
 from ..geometry import estimate_essential_matrix
-from ..ops import BADTable, dense_bad, load_bad_params, shi_tomasi_score
+from ..ops import (BADTable, dense_bad, dog_responses, dog_score, fast_score,
+                   load_bad_params, shi_tomasi_score, voxel_downsampling)
 from .akaze_family import AKAZESparseBADSinkhorn, akaze_detect_cfg
 from .essential_family import (AKAZESparseBADSinkhornEssential,
                                ShiTomasiAngleSparseBADSinkhornEssential)
@@ -42,6 +45,7 @@ class PipelineSpec:
     defaults: MatcherConfig
     description: str = ""
     takes_k_inv: bool = False  # essential-matrix pipelines take a (3, 3) K^-1
+    n_images: int = 2          # image inputs; 0 for tensor-input pipelines
 
 
 _REGISTRY: dict[str, PipelineSpec] = {}
@@ -80,6 +84,56 @@ def build(name: str, cfg: MatcherConfig | None = None, *,
     base = cfg or spec.defaults
     resolved = base.with_(**overrides) if overrides else base
     return spec.factory(resolved).to(torch.device(device)).eval()
+
+
+class Batched(nn.Module):
+    """A two-image pipeline over B stacked pairs, optionally in sequential
+    sub-batches of at most ``chunk`` pairs whose outputs are concatenated.
+
+    ``forward(img1 (B, 1, H, W), img2 (B, 1, H, W))`` gives what the
+    pipeline gives on the same stacked batch, (B, ...) leaves.
+    """
+
+    def __init__(self, pipeline: nn.Module, chunk: int | None):
+        super().__init__()
+        if chunk is not None and chunk < 1:
+            raise ValueError(f"chunk must be >= 1, got {chunk}")
+        self.pipeline = pipeline
+        self.cfg = pipeline.cfg
+        self.chunk = chunk
+
+    @property
+    def device(self) -> torch.device:
+        return self.pipeline.device
+
+    def forward(self, img1: torch.Tensor, img2: torch.Tensor):
+        b = img1.shape[0]
+        if self.chunk is None or b <= self.chunk:
+            return self.pipeline(img1, img2)
+        parts = [self.pipeline(img1[i:i + self.chunk], img2[i:i + self.chunk])
+                 for i in range(0, b, self.chunk)]
+        return tuple(torch.cat(leaves, dim=0) for leaves in zip(*parts))
+
+
+def build_batched(name: str, cfg: MatcherConfig | None = None, chunk: int | None = None, *,
+                  device: str | torch.device, **overrides) -> Batched:
+    """``build(name)`` for serving B pairs per call (``parallel.stream_map_chunked``).
+
+    The port's two-image matchers already take B stacked pairs, so this is
+    the pipeline itself; with ``chunk``, a batch of more than ``chunk``
+    pairs runs as sequential sub-batches. The JAX package's vmap over
+    single pairs, and its default chunk of 6, answer layouts of XLA on a
+    TPU and are not copied: the default here is None (one call).
+    Two-image pipelines and their ``_extraction`` forms only.
+    """
+    spec = get(name)
+    if spec.takes_k_inv:
+        raise ValueError(f"{name!r} takes a k_inv beside its two images; build_batched "
+                         "serves pipelines of two (B, 1, H, W) images only")
+    if spec.n_images != 2:
+        raise ValueError(f"{name!r} takes {spec.n_images} images; build_batched serves "
+                         "two-image pipelines only")
+    return Batched(build(name, cfg, device=device, **overrides), chunk).eval()
 
 
 class Standalone(nn.Module):
@@ -160,27 +214,60 @@ register(PipelineSpec(
 register(PipelineSpec(
     "shi_tomasi",
     lambda cfg: Standalone(cfg, lambda img, c: shi_tomasi_score(img, block_size=c.block_size)),
-    _BASE, "Shi-Tomasi corner score map"))
+    _BASE, "Shi-Tomasi corner score map", n_images=1))
 register(PipelineSpec(
     "shi_tomasi_angle", lambda cfg: Standalone(cfg, shi_tomasi_with_angle),
-    _BASE.with_(block_size=5), "Shi-Tomasi scores + orientation map"))
+    _BASE.with_(block_size=5), "Shi-Tomasi scores + orientation map", n_images=1))
 register(PipelineSpec(
     "shi_tomasi_bad", lambda cfg: TableHead(cfg, shi_tomasi_bad_detect), _BASE,
-    "Shi-Tomasi scores + dense BAD descriptor map"))
+    "Shi-Tomasi scores + dense BAD descriptor map", n_images=1))
 register(PipelineSpec(
     "shi_tomasi_angle_sparse_bad",
     lambda cfg: TableHead(cfg, shi_tomasi_angle_sparse_bad_detect),
-    _BASE.with_(block_size=5), "single-image keypoints + oriented descriptors"))
+    _BASE.with_(block_size=5), "single-image keypoints + oriented descriptors", n_images=1))
 register(PipelineSpec(
     "bad", lambda cfg: TableHead(cfg, _dense_map), _BASE,
-    "dense BAD descriptor map (binarize / soft_binarize select none, soft or hard)"))
+    "dense BAD descriptor map (binarize / soft_binarize select none, soft or hard)", n_images=1))
 register(PipelineSpec("akaze", lambda cfg: Standalone(cfg, akaze_detect_cfg), _BASE,
-                      "AKAZE scores + orientation maps"))
+                      "AKAZE scores + orientation maps", n_images=1))
 register(PipelineSpec(
     "sinkhorn", lambda cfg: Standalone(cfg, sinkhorn_cfg), _BASE,
-    "standalone Sinkhorn matcher on (B, K, D) descriptor tensors"))
+    "standalone Sinkhorn matcher on (B, K, D) descriptor tensors", n_images=0))
 register(PipelineSpec(
     "essential_matrix_estimator", lambda cfg: Standalone(cfg, _grid_essential),
     _BASE,
     "standalone grid-variant weighted-8-point E estimator on a Sinkhorn "
-    "matrix and k_inv (feature index i maps to a sqrt(K) x sqrt(K) pixel grid)"))
+    "matrix and k_inv (feature index i maps to a sqrt(K) x sqrt(K) pixel grid)", n_images=0))
+
+# FAST / DoG heads: their hyperparameters come from the config's nested
+# FASTConfig / DoGConfig, so overrides like fast_threshold=30 reach the op.
+register(PipelineSpec(
+    "fast", lambda cfg: Standalone(cfg, lambda img, c: fast_score(
+        img, threshold=c.fast.threshold, use_nms=c.fast.use_nms,
+        nms_radius=c.fast.nms_radius)),
+    _BASE, "FAST-9 binary corner score map", n_images=1))
+
+
+def _dog_kw(cfg: MatcherConfig) -> dict:
+    d = cfg.dog
+    return dict(num_scales=d.num_scales, sigma_base=d.sigma_base,
+                sigma_ratio=d.sigma_ratio, kernel_size=d.kernel_size)
+
+
+register(PipelineSpec(
+    "dog", lambda cfg: Standalone(cfg, lambda img, c: dog_responses(img, **_dog_kw(c))),
+    _BASE, "Difference-of-Gaussians band responses", n_images=1))
+register(PipelineSpec(
+    "dog_with_score", lambda cfg: Standalone(cfg, lambda img, c: dog_score(img, **_dog_kw(c))),
+    _BASE, "DoG max-|response| score map", n_images=1))
+
+# The JAX registry's deployment size of the standalone voxel export (its
+# executables are specialized per N); the port's module takes any N.
+VOXEL_EXPORT_POINTS = 8192
+
+register(PipelineSpec(
+    "voxel_downsampling",
+    lambda cfg: Standalone(cfg, lambda pts, leaf, c: voxel_downsampling(pts, leaf)),
+    _BASE,
+    "standalone voxel-grid downsampling: (N, 3) points + a 0-dim leaf size on the "
+    "module's device -> (N, 3) centroids + validity mask", n_images=0))

@@ -142,3 +142,55 @@ def nms_select_topk(scores: torch.Tensor, max_keypoints: int,
     mask = nms_maxpool(scores, nms_radius)
     return select_topk_keypoints(scores, mask, max_keypoints, score_threshold,
                                  border_margin, nms_radius=None)
+
+
+def refine_keypoints_subpixel(scores: torch.Tensor, keypoints: torch.Tensor,
+                              kpt_scores: torch.Tensor | None = None):
+    """In-graph per-axis 3-point parabola sub-pixel refinement (the host
+    version is ``utils.refine_keypoints_subpixel``).
+
+    The offset (f(-1) - f(1)) / (2 (f(-1) - 2 f(0) + f(1))) applies only
+    where the parabola is concave and |delta| < 1; border and invalid
+    (-1, -1) keypoints pass through unchanged.
+
+    Args:
+        scores: (B, H, W) raw (pre-NMS) score map.
+        keypoints: (B, K, 2) integer-valued (y, x).
+        kpt_scores: optional (B, K) scores to refine alongside.
+
+    Returns:
+        (B, K, 2) refined keypoints [, (B, K) interpolated scores].
+    """
+    b, h, w = scores.shape
+    yi = keypoints[..., 0].to(torch.int64)
+    xi = keypoints[..., 1].to(torch.int64)
+    valid = (yi >= 1) & (yi < h - 1) & (xi >= 1) & (xi < w - 1)
+    yc = yi.clamp(1, h - 2)
+    xc = xi.clamp(1, w - 2)
+    flat = scores.reshape(b, h * w)
+
+    def at(dy, dx):
+        return torch.gather(flat, 1, (yc + dy) * w + (xc + dx))
+
+    f0 = at(0, 0)
+
+    def delta(f_n, f_p):
+        denom = 2.0 * (f_n - 2.0 * f0 + f_p)
+        d = torch.where(denom < -1e-6,
+                        (f_n - f_p) / torch.where(denom == 0, 1.0, denom), 0.0)
+        return torch.where(d.abs() < 1.0, d, 0.0)
+
+    fy_n, fy_p = at(-1, 0), at(1, 0)
+    fx_n, fx_p = at(0, -1), at(0, 1)
+    dy = delta(fy_n, fy_p) * valid
+    dx = delta(fx_n, fx_p) * valid
+
+    refined = torch.stack([keypoints[..., 0] + dy, keypoints[..., 1] + dx], dim=-1)
+    refined = torch.where(keypoints[..., :1] >= 0, refined, keypoints)
+    if kpt_scores is None:
+        return refined
+    score_y = f0 + 0.25 * dy * (fy_p - fy_n)
+    score_x = f0 + 0.25 * dx * (fx_p - fx_n)
+    new_scores = torch.where(valid & (keypoints[..., 0] >= 0),
+                             (score_y + score_x) / 2.0, kpt_scores)
+    return refined, new_scores

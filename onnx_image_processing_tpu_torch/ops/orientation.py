@@ -30,3 +30,20 @@ def angle_moments(image: torch.Tensor, patch_size: int = 15,
     m10 = conv1d_w(conv1d_h(xp, g), tg)   # x-weighted moment
     m01 = conv1d_w(conv1d_h(xp, tg), g)   # y-weighted moment
     return m10[:, None], m01[:, None]
+
+
+def angle_estimation_multiscale(image: torch.Tensor, num_scales: int = 3,
+                                patch_size: int = 15, sigma: float = 2.5,
+                                pooling_factor: int = 2):
+    """Multi-scale orientation pyramid, with the reference's contract
+    (`orientation/angle_estimation.py:175-295`): scale selection is not
+    implemented upstream, so it returns scale 0's orientation and an
+    all-zero scale map. Nothing reads the deeper scales (under ``jax.jit``
+    the JAX version's are dead code), so they are not built; ``num_scales``
+    and ``pooling_factor`` stay for the signature.
+
+    Returns:
+        (orientation (B, 1, H, W), scale index (B, 1, H, W) zeros).
+    """
+    first = angle_estimation(image, patch_size=patch_size, sigma=sigma)
+    return first, torch.zeros_like(first)

@@ -14,36 +14,50 @@ import torch
 from ..core import full_fp32
 from ..kernels import sinkhorn_kernel
 
-# Stream the L1 cost when the (B, N, M, D) difference tensor would exceed this
+# Stream the L1 cost when the (..., N, M, D) difference tensor would exceed this
 # many elements (~64 MB f32); at K=1024, D=512 the direct form is ~2 GB.
 _L1_DIRECT_ELEMS = 1 << 24
 
 
 def _l1_cost(desc1: torch.Tensor, desc2: torch.Tensor) -> torch.Tensor:
-    """Pairwise L1 cost without materializing (B, N, M, D): desc2 is taken
-    in column chunks, so the peak is one (B, N, chunk, D) slab."""
-    b, n, d = desc1.shape
-    m = desc2.shape[1]
-    if b * n * m * d <= _L1_DIRECT_ELEMS:
-        return (desc1[:, :, None, :] - desc2[:, None, :, :]).abs().sum(-1)
-    chunk = max(1, min(m, _L1_DIRECT_ELEMS // max(1, b * n * d)))
-    return torch.cat([(desc1[:, :, None, :] - desc2[:, None, j:j + chunk, :])
-                      .abs().sum(-1) for j in range(0, m, chunk)], dim=2)
+    """Pairwise L1 cost of (..., N, D) and (..., M, D) without materializing
+    (..., N, M, D): desc2 is taken in column chunks, so the peak is one
+    (..., N, chunk, D) slab."""
+    n, d = desc1.shape[-2:]
+    m = desc2.shape[-2]
+    lead = desc1[..., 0, 0].numel()
+    if lead * n * m * d <= _L1_DIRECT_ELEMS:
+        return (desc1[..., :, None, :] - desc2[..., None, :, :]).abs().sum(-1)
+    chunk = max(1, min(m, _L1_DIRECT_ELEMS // max(1, lead * n * d)))
+    return torch.cat([(desc1[..., :, None, :] - desc2[..., None, j:j + chunk, :])
+                      .abs().sum(-1) for j in range(0, m, chunk)], dim=-1)
+
+
+def _l2_cost(desc1: torch.Tensor, desc2: torch.Tensor) -> torch.Tensor:
+    """Squared L2 of (N, D) and (M, D) via norms and one full-f32 product."""
+    n1 = torch.sum(desc1 * desc1, dim=-1, keepdim=True)   # (N, 1)
+    n2 = torch.sum(desc2 * desc2, dim=-1, keepdim=True)   # (M, 1)
+    with full_fp32():
+        dots = desc1 @ desc2.T
+    return torch.clamp_min(n1 + n2.T - 2.0 * dots, 0.0)
 
 
 def _cost_matrix(desc1: torch.Tensor, desc2: torch.Tensor,
                  distance_type: str) -> torch.Tensor:
-    """Pairwise cost: squared L2 via norms and one full-f32 matrix product,
-    or L1."""
+    """Pairwise (B, N, M) cost, squared L2 or L1, one batch entry at a
+    time: the card's batched product and reductions pick other summation
+    orders at other batch sizes, and at eps 0.05 twenty sweeps carry such
+    an ulp to ~2e-5 in P, so a pair's P would depend on how many pairs
+    share the call (``models.build_batched``)."""
     if distance_type == "l2":
-        n1 = torch.sum(desc1 * desc1, dim=-1, keepdim=True)   # (B, N, 1)
-        n2 = torch.sum(desc2 * desc2, dim=-1, keepdim=True)   # (B, M, 1)
-        with full_fp32():
-            dots = torch.matmul(desc1, desc2.transpose(-2, -1))
-        return torch.clamp_min(n1 + n2.transpose(-2, -1) - 2.0 * dots, 0.0)
-    if distance_type == "l1":
-        return _l1_cost(desc1, desc2)
-    raise ValueError(f"distance_type must be 'l1' or 'l2', got {distance_type}")
+        cost = _l2_cost
+    elif distance_type == "l1":
+        cost = _l1_cost
+    else:
+        raise ValueError(f"distance_type must be 'l1' or 'l2', got {distance_type}")
+    if desc1.shape[0] == 1:
+        return cost(desc1[0], desc2[0])[None]
+    return torch.stack([cost(d1, d2) for d1, d2 in zip(desc1, desc2)])
 
 
 def sinkhorn_inputs(desc1: torch.Tensor, desc2: torch.Tensor,

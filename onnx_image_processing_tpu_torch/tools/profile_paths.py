@@ -7,7 +7,11 @@ call beside them.
 
 Each two-image path (the flagship, the flagship with ``fused_detect=True``,
 the AKAZE matcher, the dense matcher; ``chip_smoke.py``'s pair and settings)
-is one call on the pair. Each VO path (the AKAZE essential pipeline at its registry defaults,
+is one call on the pair. The single-image heads ``fast`` and
+``dog_with_score`` are one call on the pair (B = 2), ``voxel_downsampling``
+one call on 38,400 points in [-3, 3]^3 (leaf 0.05), and ``served chunk 4``
+one call of ``models.build_batched`` on 4 stacked pairs (the flagship at 512
+keypoints, the inputs already on the card; a call: one chunk). Each VO path (the AKAZE essential pipeline at its registry defaults,
 the flagship essential pipeline with 256 RANSAC hypotheses; phase 7 of
 ``chip_smoke.py``) is profiled three ways: one VO frame (extract the new
 frame, match it against cached reference features, one host copy of the
@@ -129,6 +133,26 @@ def vo_steps(name: str, overrides: dict, dev: torch.device) -> dict:
     }
 
 
+def aux_steps(dev: torch.device, pair) -> dict:
+    """Callables of the heads without a matcher and of one served chunk."""
+    import chip_smoke
+    from onnx_image_processing_tpu_torch import models
+
+    both = torch.cat(pair)
+    steps = {name: (lambda fn=models.build(name, device=dev): fn(both))
+             for name in ("fast", "dog_with_score")}
+    pts = torch.from_numpy(np.random.default_rng(3).uniform(-3, 3, (38400, 3))
+                           .astype(np.float32)).to(dev)
+    leaf = torch.tensor(np.float32(chip_smoke.VOXEL_LEAF), device=dev)
+    voxel = models.build("voxel_downsampling", device=dev)
+    steps["voxel_downsampling"] = lambda: voxel(pts, leaf)
+    fb = models.build_batched(PATHS["flagship"][0], device=dev, **PATHS["flagship"][1])
+    a4, b4 = (torch.from_numpy(np.concatenate([chip_smoke.texture_pair(100 + i)[side]
+                                               for i in range(4)])).to(dev) for side in (0, 1))
+    steps["served chunk 4"] = lambda: fb(a4, b4)
+    return steps
+
+
 def main() -> None:
     import chip_smoke  # the repo root's smoke script: its inputs and its card line
     from onnx_image_processing_tpu_torch import models
@@ -147,6 +171,7 @@ def main() -> None:
     for label, (name, kw) in VO_PATHS.items():
         for part, step in vo_steps(name, kw, dev).items():
             steps[f"{label} {part}"] = step
+    steps.update(aux_steps(dev, pair))
     for rep, order in enumerate((list(steps), list(reversed(steps)))):
         for label in order:
             print(label, f"pass{rep}", json.dumps(profile_path(steps[label])), flush=True)

@@ -530,3 +530,66 @@ def test_dense_matcher_launches_and_oriented_map(dev):
     gather = ops.dense_bad(imgs[0], table, orientation=theta, oriented_route="gather")
     assert tiled.shape == (1, 256, 120, 160)
     assert (tiled - gather).abs().max().item() <= 2e-3
+
+
+def test_serving_on_the_card_matches_the_per_pair_loop(dev):
+    """stream_map_chunked(build_batched(...)) on the card: 7 pairs at chunk
+    3 (a padded final chunk), keypoints equal to the per-pair loop, P within
+    1e-5; every result fetched through pinned buffers."""
+    from onnx_image_processing_tpu_torch.parallel import stream_map_chunked
+    from onnx_image_processing_tpu_torch.parallel.throughput import _drain, _fetch
+
+    rng = np.random.default_rng(21)
+    pairs = [tuple(rng.uniform(0, 255, (1, 1, 120, 160)).astype(np.float32) for _ in range(2))
+             for _ in range(7)]
+    name = "shi_tomasi_angle_sparse_bad_sinkhorn"
+    fn = models.build(name, max_keypoints=64, device=dev)
+    seq = [tuple(t.cpu().numpy()[0] for t in fn(torch.from_numpy(a).to(dev),
+                                                 torch.from_numpy(b).to(dev))) for a, b in pairs]
+    fb = models.build_batched(name, max_keypoints=64, device=dev)
+    for depth in (1, 2):
+        out = list(stream_map_chunked(fb, pairs, chunk=3, depth=depth))
+        assert len(out) == 7
+        for (k1, k2, p), (k1s, k2s, ps) in zip(out, seq):
+            assert np.array_equal(k1, k1s) and np.array_equal(k2, k2s)
+            assert np.abs(p - ps).max() <= 1e-5
+    tree, event = _fetch((torch.arange(5, device=dev), 3))
+    assert tree[0].is_pinned() and tree[1] == 3 and event is not None
+    assert _drain((tree, event))[0].tolist() == [0, 1, 2, 3, 4]
+
+
+def test_aux_ops_on_the_card_equal_the_cpu(dev):
+    rng = np.random.default_rng(22)
+    img = torch.from_numpy(rng.uniform(0, 255, (2, 1, 96, 128)).astype(np.float32))
+    assert torch.equal(ops.fast_score(img.to(dev)).cpu(), ops.fast_score(img))
+    assert (ops.dog_score(img.to(dev)).cpu() - ops.dog_score(img)).abs().max() <= 1e-4
+    pts = torch.from_numpy(rng.uniform(-3, 3, (38400, 3)).astype(np.float32))
+    leaf = torch.tensor(np.float32(0.05))
+    (og, mg), (oc, mc) = (ops.voxel_downsampling(pts.to(d), leaf.to(d)) for d in (dev, "cpu"))
+    assert torch.equal(mg.cpu(), mc) and (og.cpu() - oc).abs().max() <= 2e-4
+    depth = torch.from_numpy(rng.uniform(0.5, 3.0, (96, 128)).astype(np.float32))
+    kw = dict(width=128, height=96, depth_cx=64.0, depth_cy=48.0, depth_fx=100.0,
+              depth_fy=100.0, rgb_cx=64.0, rgb_cy=48.0, rgb_fx=100.0, rgb_fy=100.0)
+    rot, trans = torch.eye(3), torch.tensor([0.005, 0.005, 0.0])
+    assert torch.equal(ops.depth_alignment(depth.to(dev), rot.to(dev), trans.to(dev), **kw).cpu(),
+                       ops.depth_alignment(depth, rot, trans, **kw))
+
+
+@pytest.mark.parametrize("n", [512, 1024])
+def test_sinkhorn_entry_does_not_depend_on_its_batch(dev, n):
+    """An entry's P is the same bit for bit whatever batch shares the
+    launch (the plan's lines per CTA change with B): the LSE sums run in one
+    order for every number of warps per line."""
+    rng = np.random.default_rng(n)
+    d = rng.normal(0, 1, (2, 8, n, 256)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    d1, d2 = (torch.from_numpy(a).to(dev) for a in d)
+    ls, lmu, lnu = ops.sinkhorn_inputs(d1, d2, 0.05)
+    alone = [sinkhorn_kernel.sinkhorn_core(ls[i:i + 1].contiguous(), lmu[i:i + 1].contiguous(),
+                                           lnu[i:i + 1].contiguous(), 20) for i in range(8)]
+    for b in (2, 3, 4, 8):
+        p = sinkhorn_kernel.sinkhorn_core(ls[:b].contiguous(), lmu[:b].contiguous(),
+                                          lnu[:b].contiguous(), 20)
+        assert all(torch.equal(p[i], alone[i][0]) for i in range(b)), b
+    cost_b = ops.sinkhorn_inputs(d1[:3], d2[:3], 0.05)[0]
+    assert torch.equal(cost_b[1], ops.sinkhorn_inputs(d1[1:2], d2[1:2], 0.05)[0][0])

@@ -148,14 +148,15 @@ def test_inputs_on_another_device_raise(gray_image_pair):
 
 
 def test_unported_options_raise(gray_image_pair):
-    """Approximate top-k and the auxiliary detectors (FAST, DoG) stay
-    unported; the L1 cost, the essential pipelines and the dense family now
-    build and run."""
+    """Approximate top-k stays unported; the L1 cost, the essential
+    pipelines, the dense family and the auxiliary heads (FAST, DoG, voxel
+    downsampling) build and run; an unknown name raises."""
     with pytest.raises(NotImplementedError):
         models.build(NAME, topk_mode="approx", device="cpu")
     for name in ("fast", "dog", "dog_with_score", "voxel_downsampling"):
-        with pytest.raises(KeyError, match="unknown pipeline"):
-            models.build(name, device="cpu")
+        assert models.build(name, device="cpu").device == torch.device("cpu")
+    with pytest.raises(KeyError, match="unknown pipeline"):
+        models.build("harris", device="cpu")
     assert models.build("shi_tomasi_bad_sinkhorn", device="cpu").cfg.max_keypoints == 1024
     img1, img2 = (torch.from_numpy(i) for i in gray_image_pair)
     k1, k2, p = models.build(NAME, max_keypoints=32, distance_type="l1", epsilon=2.0,

@@ -117,13 +117,22 @@ def test_benchmark_flag_prints_a_time(pngs, tmp_path, capsys):
     assert re.search(r"Elapsed: [0-9.]+ ms/frame .* on cpu", capsys.readouterr().out)
 
 
-def test_unported_detectors_and_missing_card_fail_plainly(pngs, tmp_path, monkeypatch, capsys):
-    with pytest.raises(SystemExit) as e:
-        fd.main(["-i", pngs[0], "--fast-threshold", "30", "--device", "cpu"])
-    assert e.value.code == 2 and "not ported" in capsys.readouterr().err
-    with pytest.raises(KeyError, match="unknown pipeline"):
-        fd.main(["-i", pngs[0], "-m", "fast", "--device", "cpu", "-o",
-                 str(tmp_path / "k.png")] + SIZE)
+@pytest.mark.parametrize("model,flags", [("fast", ["--fast-threshold", "30", "--fast-use-nms"]),
+                                         ("dog_with_score", ["--dog-num-scales", "4"])])
+def test_fast_and_dog_feature_detection_counts_match_jax(model, flags, pngs, tmp_path, capsys):
+    got, want = _run_both(capsys, fd.main, j_fd.main,
+                          ["-i", pngs[0], "-m", model, "-k", "300", "-t", "0.5"] + flags + SIZE,
+                          str(tmp_path / "k.png"))
+    assert got == want and len(got) == 1 and got[0] > 20
+
+
+def test_fast_and_dog_flags_run_and_missing_card_fails_plainly(pngs, tmp_path, monkeypatch,
+                                                              capsys):
+    for args in (["-m", "fast", "--fast-threshold", "30"], ["-m", "dog_with_score"]):
+        out = str(tmp_path / f"{args[1]}.png")
+        assert fd.main(["-i", pngs[0], "--device", "cpu", "-o", out] + args + SIZE) == 0
+        assert os.path.getsize(out) > 0
+        assert re.search(rf"Detected \d+ keypoints \(model={args[1]},", capsys.readouterr().out)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="--device cpu"):
         im.main(["-i1", pngs[0], "-i2", pngs[1]])
