@@ -77,6 +77,16 @@ Phases (any failed check raises; nothing falls back to the CPU):
    ``stream_map`` of its streaming extract at depth 1, 2, each held to the
    per-pair sequential loop on the card, with pairs/s on the host clock
    and the device launches per chunk.
+11. Export on the card (``torch.export``): the flagship, the flagship with
+   ``fused_detect=True`` and the AKAZE matcher (``_extraction`` forms,
+   480x640, 512 keypoints, 256 matches) exported on CUDA, saved to a
+   temporary directory and loaded back: the graph holds the kernels' op
+   nodes, the loaded module's outputs equal the eager module's bit for bit
+   on the pair, and one loaded call launches each kernel as often as one
+   eager call (> 0); export and load seconds, ms per pair eager vs loaded.
+   The flagship's dynamic artifact equals eager at 480x640 and 240x320, and
+   its streaming pair (extract, match) matches the two-image matcher
+   (keypoints equal, P within 1e-5).
 
 The last two lines are a JSON object of per-kernel results (each with its
 launches on the paths, launches per call of its path, error against its
@@ -305,15 +315,7 @@ def run_path(label, name, overrides, g_pair, c_pair, expect_zero=(), self_min=0)
           f"matches, median dx {dx}, dy {dy}")
     check(abs(dx - SHIFT_X) <= 1 and abs(dy) <= 1, f"[{label}] shift not recovered")
 
-    times = []
-    for i in range(25):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        extraction(*g_pair)
-        torch.cuda.synchronize()
-        if i >= 5:
-            times.append((time.perf_counter() - t0) * 1e3)
-    print(f"[{label}] {np.median(times):.3f} ms per pair (median of {len(times)} calls, "
+    print(f"[{label}] {median_ms(extraction, g_pair):.3f} ms per pair (median of 20 calls, "
           f"host clock around synchronized calls)")
     return counts, matcher, (gout, cout)
 
@@ -326,6 +328,21 @@ def check_counts(label, counts, expect_positive) -> None:
             check(c > 0, f"[{label}] kernel {k} was not launched")
         else:
             check(c == 0, f"[{label}] kernel {k} launched {c} times, expected none")
+
+
+def median_ms(fn, args, warmup: int = 5, reps: int = 20) -> float:
+    """Median host-clock ms of ``fn(*args)`` between synchronizes."""
+    import torch
+
+    times = []
+    for i in range(warmup + reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(*args)
+        torch.cuda.synchronize()
+        if i >= warmup:
+            times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
 
 
 def synced_ms(fn) -> tuple[float, object]:
@@ -799,6 +816,108 @@ def run_serving(dev, paths: dict, results: dict) -> None:
               f"pairs/s (median of {2 * SERVE_REPS} alternating streams each); the batched "
               f"product's P from the per-pair loop: max abs diff off the dustbin corner "
               f"{max(float(d.max()) for d in diff):.3e}, corner relative {corner:.3e}")
+
+
+# Phase 11: the exported paths, each path's kernels (launch counters) and
+# the op nodes its graph must hold.
+EXPORT_PATHS = (
+    ("flagship", {}, ("select_frontend", "sparse_sampler", "sinkhorn"),
+     ("nms_select_blocks", "box_sample", "sinkhorn_core")),
+    ("fused", {"fused_detect": True}, ("detect_frontend", "sparse_sampler", "sinkhorn"),
+     ("detect_select", "box_sample", "sinkhorn_core")),
+    ("AKAZE", {}, ("akaze_ladder", "select_frontend", "sparse_sampler", "sinkhorn"),
+     ("akaze_ladder", "nms_select_blocks", "box_sample", "sinkhorn_core")),
+)
+SMALL_H, SMALL_W = 240, 320   # the dynamic artifact's second shape
+
+
+def outputs_equal(a, b) -> bool:
+    """As many outputs, each of the same type and shape, equal bit for bit."""
+    import torch
+
+    return len(a) == len(b) and all(x.dtype == y.dtype and x.shape == y.shape
+                                    and torch.equal(x, y) for x, y in zip(a, b))
+
+
+def run_export(g_pair, paths: dict) -> None:
+    """Phase 11: the three paths exported on the card, saved, loaded and
+    held to their eager modules; the flagship's dynamic artifact at two
+    shapes and its streaming pair. Adds each loaded call's launch counts
+    to ``paths``."""
+    import tempfile
+
+    import torch
+    from onnx_image_processing_tpu_torch import models
+    from onnx_image_processing_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    dev = g_pair[0].device
+    kw = dict(max_keypoints=MAX_KEYPOINTS, max_matches=MAX_MATCHES)
+
+    def counted(fn, args):
+        reset_launch_counts()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        return out, launch_counts()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, extra, kernels, op_names in EXPORT_PATHS:
+            name = (AKAZE if label == "AKAZE" else FLAGSHIP) + "_extraction"
+            eager = models.build(name, device=dev, **kw, **extra)
+            t0 = time.perf_counter()
+            exported = models.export_model(name, H, W, device=dev, **kw, **extra)
+            t_export = time.perf_counter() - t0
+            path = models.save_exported(exported, models.artifact_path(tmp, label, dev))
+            t0 = time.perf_counter()
+            loaded = models.load_exported(path)
+            t_load = time.perf_counter() - t0
+            in_graph = {str(n.target).split(".")[1] for n in exported.graph.nodes
+                        if n.op == "call_function" and str(n.target).startswith("oip.")}
+            print(f"[export {label}] export {t_export:.2f} s, save + load {t_load:.2f} s "
+                  f"({path.rsplit('/', 1)[-1]}); {len(exported.graph.nodes)} nodes, op nodes "
+                  f"{sorted(in_graph)}")
+            check(set(op_names) <= in_graph, f"[export {label}] the graph lacks op nodes "
+                                             f"{sorted(set(op_names) - in_graph)}")
+            want, c_eager = counted(eager, g_pair)
+            got, c_loaded = counted(loaded, g_pair)
+            check_counts(f"export {label}", c_loaded, kernels)
+            print(f"[export {label}] launches of one eager call {json.dumps(c_eager, sort_keys=True)}")
+            check(c_loaded == c_eager, f"[export {label}] the loaded call launched {c_loaded}, "
+                                       f"the eager call {c_eager}")
+            same = outputs_equal(got, want)
+            print(f"[export {label}] loaded vs eager on the pair: bit-identical {same}")
+            check(same, f"[export {label}] the loaded artifact's outputs differ from eager")
+            paths[f"export {label}"] = c_loaded
+            ms_e, ms_l = median_ms(eager, g_pair), median_ms(loaded, g_pair)
+            print(f"[export {label}] ms per pair: eager {ms_e:.3f}, loaded artifact {ms_l:.3f} "
+                  f"(median of 20 after 5 warm-ups, host clock around synchronized calls)")
+
+        name = FLAGSHIP + "_extraction"
+        t0 = time.perf_counter()
+        exported = models.export_model_polymorphic(name, device=dev, **kw)
+        t_export = time.perf_counter() - t0
+        loaded = models.load_exported(models.save_exported(
+            exported, models.artifact_path(tmp, name, dev, polymorphic=True)))
+        eager = models.build(name, device=dev, **kw)
+        small = tuple(t[..., :SMALL_H, :SMALL_W].contiguous() for t in g_pair)
+        for args in (g_pair, small):
+            same = outputs_equal(loaded(*args), eager(*args))
+            print(f"[export dynamic] flagship at {tuple(args[0].shape[2:])} (exported in "
+                  f"{t_export:.2f} s): bit-identical to eager {same}")
+            check(same, f"[export dynamic] differs from eager at {tuple(args[0].shape)}")
+
+        ex, ma = models.export_streaming(FLAGSHIP, H, W, device=dev,
+                                         max_keypoints=MAX_KEYPOINTS)
+        extract = models.load_exported(models.save_exported(
+            ex, models.artifact_path(tmp, FLAGSHIP + ".extract", dev)))
+        match = models.load_exported(models.save_exported(
+            ma, models.artifact_path(tmp, FLAGSHIP + ".match", dev)))
+        k1, k2, p = match(extract(g_pair[0]), extract(g_pair[1]))
+        w1, w2, wp = models.build(FLAGSHIP, device=dev, max_keypoints=MAX_KEYPOINTS)(*g_pair)
+        kpt_same = torch.equal(k1, w1) and torch.equal(k2, w2)
+        p_err = (p - wp).abs().max().item()
+        print(f"[export streaming] extract + match artifacts vs the two-image matcher: "
+              f"keypoints equal {kpt_same}, P max abs diff {p_err:.3e} (max {SERVE_P_ATOL})")
+        check(kpt_same and p_err <= SERVE_P_ATOL, "[export streaming] differs from two-image")
 
 
 def bound(nbytes: float, ops: float) -> dict:
@@ -1446,6 +1565,11 @@ def main() -> None:
     run_ops((g1, g2), (c1, c2))
     run_serving(dev, paths, results)
     print(f"phase 10: {time.perf_counter() - t10:.2f} s")
+
+    # ---- phase 11: export on the card ----------------------------------------
+    t11 = time.perf_counter()
+    run_export((g1, g2), paths)
+    print(f"phase 11: {time.perf_counter() - t11:.2f} s")
 
     sources = {"select_frontend": ("select_frontend.cu", "kernels/select_frontend.py:329", "flagship"),
                "sparse_sampler": ("sparse_sampler.cu", "kernels/sparse_sampler.py:411", "flagship"),

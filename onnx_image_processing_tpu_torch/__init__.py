@@ -11,7 +11,9 @@ BAD maps, keypoints with descriptors), FAST, DoG and voxel downsampling,
 and the rest of the JAX package's op library (``ops/``). ``parallel/``
 serves streams of pairs through ``models.build_batched`` with host I/O
 overlapped with the card. ``cli/`` holds the feature detection, image
-matching and VO apps. Around them are hand-written CUDA
+matching and VO apps and the export CLI: ``models.export_model`` and its
+kin write ``torch.export`` artifacts (``.pt2``; static, streaming and
+dynamic-shape) that run the hand kernels. Around them are hand-written CUDA
 kernels in ``csrc/`` (select frontend, sparse sampler and its stage
 ablation, Sinkhorn sweeps, detect frontend, AKAZE ladder). Each kernel has
 a plain PyTorch version beside it: a CUDA tensor goes to the kernel, a CPU

@@ -9,6 +9,17 @@ wrapper launches its kernel or raises.
 
 Each wrapper counts its launches in a :class:`LaunchCounter`, so a run can
 show that its main path went through the kernels.
+
+Every kernel entry that a pipeline reaches is a ``torch.library`` custom op
+in the ``oip`` namespace (``oip::nms_block_reduce``,
+``oip::nms_select_blocks``, ``oip::box_sample``, ``oip::sinkhorn_core``,
+``oip::detect_frontend``, ``oip::detect_select``, ``oip::akaze_ladder``):
+the public wrapper calls its op, and the op runs the plain version or
+launches the kernel by :func:`use_kernel`. Each op has a fake
+implementation that gives its output shapes from the inputs' (symbolic)
+sizes, so ``torch.export`` keeps it as one node of a graph without calling
+it; an exported program runs the hand kernels on the card. The sampler's
+stage ablation, reached only by a tool, stays a direct call.
 """
 
 from __future__ import annotations

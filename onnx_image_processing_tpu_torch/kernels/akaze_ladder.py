@@ -6,7 +6,9 @@ Port of ``onnx_image_processing_tpu/kernels/akaze_ladder.py``
 ``csrc/akaze_ladder.cu``; on a CPU tensor it runs :func:`akaze_ladder_plain`,
 the port of ``akaze_ladder_reference``, built from ``ops/akaze.py``. The
 kernel rounds every multiply and add on its own, in the plain version's
-order, so on the card the two agree bit for bit.
+order, so on the card the two agree bit for bit. Both go through the custom
+op ``oip::akaze_ladder``, which ``torch.export`` keeps as one node of its
+graph.
 
 The kernel has two routes, picked by :func:`ladder_plan` from the shape:
 one cooperative launch whose CTAs each keep a tile of the diffusion state
@@ -181,6 +183,18 @@ def akaze_ladder(image: torch.Tensor, num_scales: int = 3,
         Hessian NMS score and the Gaussian orientation moments of every
         scale; the angle is atan2(m01, m10), taken by the caller.
     """
+    return akaze_ladder_op(image, int(num_scales), int(diffusion_iterations), float(kappa),
+                           float(threshold), int(nms_size), int(orientation_patch_size),
+                           float(orientation_sigma))
+
+
+@torch.library.custom_op("oip::akaze_ladder", mutates_args=())
+def akaze_ladder_op(image: torch.Tensor, num_scales: int, diffusion_iterations: int,
+                    kappa: float, threshold: float, nms_size: int,
+                    orientation_patch_size: int, orientation_sigma: float
+                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The op behind :func:`akaze_ladder`: the plain version on a CPU
+    tensor, one launch of the kernel on a CUDA tensor (either route)."""
     if not use_kernel(image):
         return akaze_ladder_plain(image, num_scales, diffusion_iterations, kappa,
                                   threshold, nms_size, orientation_patch_size,
@@ -208,8 +222,8 @@ def akaze_ladder(image: torch.Tensor, num_scales: int = 3,
     # state buffers: (2, B, H, W) either way.
     state = torch.empty((2, b, h, w), dtype=torch.float32, device=dev)
     host_taps = np.concatenate(moment_taps(orientation_sigma, orientation_patch_size))
-    args = (b, h, w, int(num_scales), int(diffusion_iterations),
-            float(np.float32(1.0 / (kappa * kappa))), float(threshold), nms_radius, half)
+    args = (b, h, w, num_scales, diffusion_iterations,
+            float(np.float32(1.0 / (kappa * kappa))), threshold, nms_radius, half)
     if plan.route == "resident":
         tags = torch.empty((b, plan.ny, plan.nx), dtype=torch.int32, device=dev)
         fn = _build.entry("oip_akaze_ladder_resident", _RESIDENT_ARGTYPES)
@@ -227,3 +241,11 @@ def akaze_ladder(image: torch.Tensor, num_scales: int = 3,
     _build.check(err, "akaze_ladder launch")
     LAUNCHES.count += 1
     return scores, m10, m01
+
+
+@akaze_ladder_op.register_fake
+def _(image, num_scales, diffusion_iterations, kappa, threshold, nms_size,
+      orientation_patch_size, orientation_sigma):
+    b, h, w = image.shape
+    return tuple(image.new_empty((b, num_scales, h, w), dtype=torch.float32)
+                 for _ in range(3))

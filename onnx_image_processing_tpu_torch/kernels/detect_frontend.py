@@ -12,7 +12,9 @@ carried over: the CUDA kernel tiles any H x W, in tiles that
 :func:`detect_select` goes on, in the same launch, to the border-margin and
 threshold masks, the block maxima and the K best blocks as keypoints: the
 premasked select that ``models/shi_tomasi_family.py`` runs after the detect
-frontend. Its plain version is :func:`detect_select_plain`. Its ticket
+frontend. Its plain version is :func:`detect_select_plain`. Both functions
+go through custom ops (``oip::detect_frontend``, ``oip::detect_select``),
+which ``torch.export`` keeps as nodes of its graph. Its ticket
 counters are the select kernel's (``_build.ticket_counters``: one set per
 device, shared by both kernels, left at 0 by every launch).
 """
@@ -192,11 +194,20 @@ def _taps(sigma: float, patch_size: int) -> np.ndarray:
 
 
 def _maps(image: torch.Tensor, with_angle: bool):
+    """The three output maps; without the angle the moments are empty
+    (B, 1, 0, 0): an op returns tensors only."""
     b, _, h, w = image.shape
-    score = torch.empty((b, 1, h, w), dtype=torch.float32, device=image.device)
-    m10, m01 = ((torch.empty_like(score), torch.empty_like(score))
-                if with_angle else (None, None))
-    return score, m10, m01
+    score = image.new_empty((b, 1, h, w))
+    mh, mw = (h, w) if with_angle else (0, 0)
+    return score, image.new_empty((b, 1, mh, mw)), image.new_empty((b, 1, mh, mw))
+
+
+def _no_angle(image: torch.Tensor, with_angle: bool, m10, m01):
+    """The plain version's moments as the op returns them."""
+    if with_angle:
+        return m10, m01
+    b = image.shape[0]
+    return image.new_empty((b, 1, 0, 0)), image.new_empty((b, 1, 0, 0))
 
 
 def detect_frontend(image: torch.Tensor, block_size: int = 3,
@@ -214,12 +225,25 @@ def detect_frontend(image: torch.Tensor, block_size: int = 3,
         Gaussian moments whose atan2 at a keypoint is its orientation. m10
         and m01 are None when ``with_angle`` is False.
     """
+    score, m10, m01 = detect_frontend_op(image, int(block_size), int(patch_size),
+                                         float(sigma), int(nms_radius), bool(with_angle))
+    return (score, m10, m01) if with_angle else (score, None, None)
+
+
+@torch.library.custom_op("oip::detect_frontend", mutates_args=())
+def detect_frontend_op(image: torch.Tensor, block_size: int, patch_size: int, sigma: float,
+                       nms_radius: int,
+                       with_angle: bool) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The op behind :func:`detect_frontend` (the moments (B, 1, 0, 0)
+    without the angle): the plain version on a CPU tensor, one launch of
+    the kernel on a CUDA tensor."""
     if not use_kernel(image):
-        return detect_frontend_plain(image, block_size, patch_size, sigma,
-                                     nms_radius, with_angle)
+        score, m10, m01 = detect_frontend_plain(image, block_size, patch_size, sigma,
+                                                nms_radius, with_angle)
+        return (score, *_no_angle(image, with_angle, m10, m01))
     rb, half = _check(image, block_size, patch_size, sigma, nms_radius)
     b, _, h, w = image.shape
-    rn = int(nms_radius)
+    rn = nms_radius
     plan = device_plan(b, h, w, rb, rn, half, image.device)
     score, m10, m01 = _maps(image, with_angle)
     taps = _taps(sigma, patch_size)
@@ -232,6 +256,11 @@ def detect_frontend(image: torch.Tensor, block_size: int = 3,
     _build.check(err, "detect_frontend launch")
     LAUNCHES.count += 1
     return score, m10, m01
+
+
+@detect_frontend_op.register_fake
+def _(image, block_size, patch_size, sigma, nms_radius, with_angle):
+    return _maps(image, with_angle)
 
 
 def detect_select(image: torch.Tensor, block_size: int = 3, patch_size: int = 15,
@@ -254,12 +283,29 @@ def detect_select(image: torch.Tensor, block_size: int = 3, patch_size: int = 15
         m01)``: a slot whose block max is <= 0 is (-1, -1) with score 0; the
         maps are :func:`detect_frontend`'s.
     """
+    kpts, kscores, score, m10, m01 = detect_select_op(
+        image, int(block_size), int(patch_size), float(sigma), int(nms_radius),
+        int(max_keypoints), float(score_threshold), int(border_margin), bool(with_angle))
+    return (kpts, kscores, score, m10, m01) if with_angle else (kpts, kscores, score, None, None)
+
+
+@torch.library.custom_op("oip::detect_select", mutates_args=())
+def detect_select_op(image: torch.Tensor, block_size: int, patch_size: int, sigma: float,
+                     nms_radius: int, max_keypoints: int, score_threshold: float,
+                     border_margin: int, with_angle: bool
+                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
+                                torch.Tensor]:
+    """The op behind :func:`detect_select` (the moments (B, 1, 0, 0)
+    without the angle): the plain version on a CPU tensor, one launch of
+    the kernel on a CUDA tensor. The ticket counters are internal state
+    that every launch leaves at 0, not an argument."""
     if not use_kernel(image):
-        return detect_select_plain(image, block_size, patch_size, sigma, nms_radius,
-                                   max_keypoints, score_threshold, border_margin,
-                                   with_angle)
+        kpts, kscores, score, m10, m01 = detect_select_plain(
+            image, block_size, patch_size, sigma, nms_radius, max_keypoints,
+            score_threshold, border_margin, with_angle)
+        return (kpts, kscores, score, *_no_angle(image, with_angle, m10, m01))
     rb, half = _check(image, block_size, patch_size, sigma, nms_radius)
-    rn, k = int(nms_radius), int(max_keypoints)
+    rn, k = nms_radius, max_keypoints
     if rn < 1:
         raise ValueError(f"detect_select needs nms_radius >= 1, got {rn}")
     b, _, h, w = image.shape
@@ -287,8 +333,16 @@ def detect_select(image: torch.Tensor, block_size: int = 3, patch_size: int = 15
              _build.ptr(score), *moments, _build.ptr(block_max), _build.ptr(block_idx),
              _build.ptr(counters), None if keys is None else _build.ptr(keys),
              _build.ptr(kpts), _build.ptr(kscores), b, h, w, rb, rn, half, int(with_angle),
-             plan.th, plan.tw, int(border_margin), float(score_threshold), k,
+             plan.th, plan.tw, border_margin, score_threshold, k,
              0 if keys is None else p2, _build.stream(image))
     _build.check(err, "detect_select launch")
     LAUNCHES.count += 1
     return kpts, kscores, score, m10, m01
+
+
+@detect_select_op.register_fake
+def _(image, block_size, patch_size, sigma, nms_radius, max_keypoints, score_threshold,
+      border_margin, with_angle):
+    b = image.shape[0]
+    return (image.new_empty((b, max_keypoints, 2)), image.new_empty((b, max_keypoints)),
+            *_maps(image, with_angle))

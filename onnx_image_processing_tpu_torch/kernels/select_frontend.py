@@ -11,6 +11,10 @@ is not carried over. :func:`nms_select_blocks` goes on to the K best blocks
 as keypoints in the same launch (the top-k and decode that the JAX package
 leaves to XLA after its kernel); its plain version is
 :func:`nms_block_reduce_plain` followed by ``ops.keypoints._select_blocks``.
+Both functions go through custom ops (``oip::nms_block_reduce``,
+``oip::nms_select_blocks``), which ``torch.export`` keeps as nodes of its
+graph; an op's fake implementation gives its output shapes from the
+input's sizes, symbolic ones included.
 """
 
 from __future__ import annotations
@@ -56,6 +60,13 @@ def _check(scores: torch.Tensor, nms_radius: int) -> tuple[int, int]:
     return hb, wb
 
 
+def _grid(scores: torch.Tensor, nms_radius: int):
+    """(B, Hb, Wb) of the block grid; the sizes stay symbolic under a trace."""
+    b, h, w = scores.shape
+    bs = nms_radius + 1
+    return b, -(-h // bs), -(-w // bs)
+
+
 def nms_block_reduce(scores: torch.Tensor, nms_radius: int,
                      score_threshold: float = 0.0, border_margin: int = 0):
     """NMS keep mask (-inf border, 1e-7 slack), border-margin and threshold
@@ -68,20 +79,33 @@ def nms_block_reduce(scores: torch.Tensor, nms_radius: int,
         ``(block_max (B, Hb, Wb) f32, block_idx (B, Hb, Wb) int32)`` with
         Hb = ceil(H / (r+1)), Wb = ceil(W / (r+1)).
     """
+    return nms_block_reduce_op(scores, int(nms_radius), float(score_threshold),
+                               int(border_margin))
+
+
+@torch.library.custom_op("oip::nms_block_reduce", mutates_args=())
+def nms_block_reduce_op(scores: torch.Tensor, nms_radius: int, score_threshold: float,
+                        border_margin: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The op behind :func:`nms_block_reduce`: the plain version on a CPU
+    tensor, one launch of the kernel on a CUDA tensor."""
     if not use_kernel(scores):
-        return nms_block_reduce_plain(scores, nms_radius, score_threshold,
-                                      border_margin)
+        return nms_block_reduce_plain(scores, nms_radius, score_threshold, border_margin)
     hb, wb = _check(scores, nms_radius)
     b, h, w = scores.shape
     block_max = torch.empty((b, hb, wb), dtype=torch.float32, device=scores.device)
     block_idx = torch.empty((b, hb, wb), dtype=torch.int32, device=scores.device)
     fn = _build.entry("oip_select_frontend", _ARGTYPES)
     err = fn(_build.ptr(scores), _build.ptr(block_max), _build.ptr(block_idx),
-             b, h, w, int(nms_radius), int(border_margin),
-             float(score_threshold), _build.stream(scores))
+             b, h, w, nms_radius, border_margin, score_threshold, _build.stream(scores))
     _build.check(err, "select_frontend launch")
     LAUNCHES.count += 1
     return block_max, block_idx
+
+
+@nms_block_reduce_op.register_fake
+def _(scores, nms_radius, score_threshold, border_margin):
+    shape = _grid(scores, nms_radius)
+    return scores.new_empty(shape), scores.new_empty(shape, dtype=torch.int32)
 
 
 def nms_select_blocks_plain(scores: torch.Tensor, nms_radius: int, max_keypoints: int,
@@ -106,11 +130,23 @@ def nms_select_blocks(scores: torch.Tensor, nms_radius: int, max_keypoints: int,
         keypoints (B, K, 2) float32 (y, x) and scores (B, K); a slot whose
         block max is <= 0 is (-1, -1) with score 0.
     """
+    return nms_select_blocks_op(scores, int(nms_radius), int(max_keypoints),
+                                float(score_threshold), int(border_margin))
+
+
+@torch.library.custom_op("oip::nms_select_blocks", mutates_args=())
+def nms_select_blocks_op(scores: torch.Tensor, nms_radius: int, max_keypoints: int,
+                         score_threshold: float,
+                         border_margin: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The op behind :func:`nms_select_blocks`: the plain version on a CPU
+    tensor, one launch of the kernel on a CUDA tensor. The kernel's ticket
+    counters are internal state that every launch leaves at 0, not an
+    argument: the op mutates none of its arguments."""
     if not use_kernel(scores):
         return nms_select_blocks_plain(scores, nms_radius, max_keypoints,
                                        score_threshold, border_margin)
     hb, wb = _check(scores, nms_radius)
-    k = int(max_keypoints)
+    k = max_keypoints
     if not 1 <= k <= hb * wb:
         raise ValueError(f"max_keypoints must be in 1..{hb * wb} (the block grid), got {k}")
     b, h, w = scores.shape
@@ -126,10 +162,15 @@ def nms_select_blocks(scores: torch.Tensor, nms_radius: int, max_keypoints: int,
     counters = _build.ticket_counters(dev, b, "nms_select_blocks")
     err = fn(_build.ptr(scores), _build.ptr(block_max), _build.ptr(block_idx),
              _build.ptr(counters), None if keys is None else _build.ptr(keys),
-             _build.ptr(kpts), _build.ptr(kscores), b, h, w, int(nms_radius),
-             int(border_margin), float(score_threshold), k,
+             _build.ptr(kpts), _build.ptr(kscores), b, h, w, nms_radius,
+             border_margin, score_threshold, k,
              0 if keys is None else p2, _build.stream(scores))
     _build.check(err, "select_frontend top-k launch")
     LAUNCHES.count += 1
     return kpts, kscores
 
+
+@nms_select_blocks_op.register_fake
+def _(scores, nms_radius, max_keypoints, score_threshold, border_margin):
+    b = scores.shape[0]
+    return (scores.new_empty((b, max_keypoints, 2)), scores.new_empty((b, max_keypoints)))

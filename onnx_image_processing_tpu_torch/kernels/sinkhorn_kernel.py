@@ -4,7 +4,9 @@ Port of ``onnx_image_processing_tpu/kernels/sinkhorn_kernel.py``
 (``sinkhorn_core``). On a CUDA tensor :func:`sinkhorn_core` launches
 ``csrc/sinkhorn.cu`` once: one cooperative launch over the card, batch
 entries side by side on bands of CTAs, laid out by :func:`sinkhorn_plan`; on a CPU tensor it runs :func:`sinkhorn_core_plain`,
-the port of the ``fori_loop`` body of ``ops/sinkhorn.py``. Nothing is
+the port of the ``fori_loop`` body of ``ops/sinkhorn.py``. Both go through
+the custom op ``oip::sinkhorn_core`` (:func:`sinkhorn_core_op`), which
+``torch.export`` keeps as one node of its graph. Nothing is
 padded, so the TPU kernel's -1e30 sentinel masking is not needed.
 """
 
@@ -115,6 +117,14 @@ def sinkhorn_core(log_scores: torch.Tensor, log_mu: torch.Tensor,
     """
     if iters <= 0:
         raise ValueError(f"iters must be positive, got {iters}")
+    return sinkhorn_core_op(log_scores, log_mu, log_nu, int(iters))
+
+
+@torch.library.custom_op("oip::sinkhorn_core", mutates_args=())
+def sinkhorn_core_op(log_scores: torch.Tensor, log_mu: torch.Tensor,
+                     log_nu: torch.Tensor, iters: int) -> torch.Tensor:
+    """The op behind :func:`sinkhorn_core`: the plain version on a CPU
+    tensor, one launch of the kernel on a CUDA tensor."""
     if not use_kernel(log_scores):
         return sinkhorn_core_plain(log_scores, log_mu, log_nu, iters)
     b, n1, m1 = log_scores.shape
@@ -136,12 +146,17 @@ def sinkhorn_core(log_scores: torch.Tensor, log_mu: torch.Tensor,
     p = torch.empty((b, n1, m1), dtype=torch.float32, device=dev)
     fn = _build.entry("oip_sinkhorn", _ARGTYPES)
     err = fn(log_scores.data_ptr(), log_mu.data_ptr(), log_nu.data_ptr(), u.data_ptr(),
-             v.data_ptr(), p.data_ptr(), b, n1, m1, int(iters), plan.ctas, plan.groups,
+             v.data_ptr(), p.data_ptr(), b, n1, m1, iters, plan.ctas, plan.groups,
              plan.lines, plan.res_rows, plan.res_cols, plan.smem_bytes,
              _build.stream(log_scores))
     _build.check(err, "sinkhorn launch")
     LAUNCHES.count += 1
     return p
+
+
+@sinkhorn_core_op.register_fake
+def _(log_scores, log_mu, log_nu, iters):
+    return log_scores.new_empty(log_scores.shape)
 
 
 def device_plan(n1: int, m1: int, device: torch.device, batch: int = 1) -> SinkhornPlan:

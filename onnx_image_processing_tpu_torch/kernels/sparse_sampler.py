@@ -3,12 +3,15 @@
 Port of ``onnx_image_processing_tpu/kernels/sparse_sampler.py``
 (``sparse_box_sample``). On a CUDA tensor :func:`box_sample` launches
 ``csrc/sparse_sampler.cu``; on a CPU tensor it runs :func:`box_sample_plain`,
-the port of ``reference_box_sample``. The TPU kernel's DMA alignment, MXU
+the port of ``reference_box_sample``. Both go through the custom op
+``oip::box_sample``, which ``torch.export`` keeps as one node of its graph.
+The TPU kernel's DMA alignment, MXU
 interval-mask contraction and bf16x3 operand split are not carried over.
 
 :func:`box_sample_ablated` is the port of ``benchmarks/ablate_sampler.py``:
 the same kernel with some of its own stages skipped (:data:`STAGES`), so
-that the time each variant saves attributes the kernel's cost.
+that the time each variant saves attributes the kernel's cost. Only the
+ablation tool reaches it, no pipeline, so it stays a direct call and no op.
 """
 
 from __future__ import annotations
@@ -112,17 +115,37 @@ def box_sample(image_padded: torch.Tensor, start_y: torch.Tensor,
         ps: sample window size; r_max: largest radius (the padding).
         bilinear: two taps per axis instead of the nearest cell.
     """
+    flat = [int(v) for group in groups for v in group]
+    return box_sample_op(image_padded, start_y, start_x, ly, lx, radius, flat,
+                         int(ps), int(r_max), bool(bilinear))
+
+
+@torch.library.custom_op("oip::box_sample", mutates_args=())
+def box_sample_op(image_padded: torch.Tensor, start_y: torch.Tensor,
+                  start_x: torch.Tensor, ly: torch.Tensor, lx: torch.Tensor,
+                  radius: torch.Tensor, groups: list[int], ps: int, r_max: int,
+                  bilinear: bool) -> torch.Tensor:
+    """The op behind :func:`box_sample`, with ``groups`` flattened to
+    (radius, lo, hi, radius, lo, hi, ...) (an op's schema has no nested
+    tuples): the plain version on a CPU tensor, one launch of the kernel on
+    a CUDA tensor."""
+    triples = tuple(tuple(groups[i:i + 3]) for i in range(0, len(groups), 3))
     if not use_kernel(image_padded):
         return box_sample_plain(image_padded, start_y, start_x, ly, lx, radius,
-                                groups, ps, r_max, bilinear)
+                                triples, ps, r_max, bilinear)
     out = _checked_output(image_padded, start_y, start_x, ly, lx, radius, ps, r_max)
-    plan = _device_plan(groups, ly.shape[2], image_padded.device)
+    plan = _device_plan(triples, ly.shape[2], image_padded.device)
     fn = _build.entry("oip_sparse_sampler", _ARGTYPES)
     err = fn(*_pointers(image_padded, start_y, start_x, ly, lx, plan, out),
              *_dims(image_padded, ly), ps, r_max, int(bilinear), _build.stream(image_padded))
     _build.check(err, "sparse_sampler launch")
     LAUNCHES.count += 1
     return out
+
+
+@box_sample_op.register_fake
+def _(image_padded, start_y, start_x, ly, lx, radius, groups, ps, r_max, bilinear):
+    return ly.new_empty(ly.shape)
 
 
 def box_sample_ablated(image_padded: torch.Tensor, start_y: torch.Tensor,

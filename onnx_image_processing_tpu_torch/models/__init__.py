@@ -1,7 +1,9 @@
-"""Pipelines of the port, their registry and their streaming split."""
+"""Pipelines of the port, their registry, their streaming split and their
+serialized artifacts (``torch.export``)."""
 
 from .registry import (VOXEL_EXPORT_POINTS, Batched, PipelineSpec, Standalone,
-                       TableHead, build, build_batched, get, names)
+                       TableHead, arg_specs, build, build_batched, compile_model, get,
+                       names, resolve_config)
 from .shi_tomasi_family import (ShiTomasiAngleSparseBADSinkhorn,
                                 ShiTomasiAngleSparseBADSinkhornWithFilters,
                                 ShiTomasiBADSinkhorn, ShiTomasiSparseBADSinkhorn,
@@ -17,9 +19,13 @@ from .essential_family import (AKAZESparseBADSinkhornEssential,
                                ShiTomasiAngleSparseBADSinkhornEssential,
                                essential_from_match)
 from .streaming import build_streaming, streaming_names, supports_streaming
+from .serialize import (POLYMORPHIC_EXPORTS, artifact_path, export_model,
+                        export_model_polymorphic, export_streaming, export_to_dir,
+                        load_exported, save_exported)
 
 __all__ = ["VOXEL_EXPORT_POINTS", "Batched", "PipelineSpec", "Standalone", "TableHead",
-           "build", "build_batched", "get", "names",
+           "arg_specs", "build", "build_batched", "compile_model", "get", "names",
+           "resolve_config",
            "SparseMatcher", "ShiTomasiAngleSparseBADSinkhorn", "ShiTomasiSparseBADSinkhorn",
            "ShiTomasiAngleSparseBADSinkhornWithFilters", "ShiTomasiBADSinkhorn",
            "shi_tomasi_with_angle", "shi_tomasi_bad_detect",
@@ -30,4 +36,7 @@ __all__ = ["VOXEL_EXPORT_POINTS", "Batched", "PipelineSpec", "Standalone", "Tabl
            "with_match_extraction", "AKAZESparseBADSinkhorn",
            "akaze_sparse_bad_sinkhorn_match", "AKAZESparseBADSinkhornEssential",
            "ShiTomasiAngleSparseBADSinkhornEssential", "essential_from_match",
-           "build_streaming", "streaming_names", "supports_streaming"]
+           "build_streaming", "streaming_names", "supports_streaming",
+           "POLYMORPHIC_EXPORTS", "export_model", "export_model_polymorphic",
+           "export_streaming", "export_to_dir", "load_exported", "save_exported",
+           "artifact_path"]

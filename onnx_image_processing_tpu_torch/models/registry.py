@@ -19,6 +19,7 @@ import math
 from dataclasses import dataclass
 from typing import Callable
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -46,6 +47,12 @@ class PipelineSpec:
     description: str = ""
     takes_k_inv: bool = False  # essential-matrix pipelines take a (3, 3) K^-1
     n_images: int = 2          # image inputs; 0 for tensor-input pipelines
+    # Single-image heads that select keypoints by NMS and top-k: their
+    # symbolic shapes carry the block-grid constraint of the matchers.
+    selects_keypoints: bool = False
+    # Inputs of a tensor-input pipeline: (cfg, height, width, batch, rng) ->
+    # numpy arrays (images are (batch, 1, height, width) otherwise).
+    make_args: Callable | None = None
 
 
 _REGISTRY: dict[str, PipelineSpec] = {}
@@ -71,6 +78,14 @@ def get(name: str) -> PipelineSpec:
     return _REGISTRY[name]
 
 
+def resolve_config(spec: PipelineSpec, cfg: MatcherConfig | None = None,
+                   **overrides) -> MatcherConfig:
+    """The one config rule: ``cfg`` (else the spec's defaults) with flat
+    ``overrides`` folded in. Shared by build, export and verification, so a
+    traced module and its example inputs never disagree."""
+    return (cfg or spec.defaults).with_(**overrides) if overrides else (cfg or spec.defaults)
+
+
 def build(name: str, cfg: MatcherConfig | None = None, *,
           device: str | torch.device, **overrides) -> nn.Module:
     """The pipeline ``name`` as an eval-mode module on ``device``.
@@ -81,9 +96,48 @@ def build(name: str, cfg: MatcherConfig | None = None, *,
     ``takes_k_inv``.
     """
     spec = get(name)
-    base = cfg or spec.defaults
-    resolved = base.with_(**overrides) if overrides else base
-    return spec.factory(resolved).to(torch.device(device)).eval()
+    return spec.factory(resolve_config(spec, cfg, **overrides)).to(torch.device(device)).eval()
+
+
+def k_inv_for(height: int, width: int) -> np.ndarray:
+    """A plausible inverse intrinsic matrix (focal 500 px, principal point
+    at the image centre), float32."""
+    k = np.array([[500.0, 0, width / 2], [0, 500.0, height / 2], [0, 0, 1]])
+    return np.linalg.inv(k).astype(np.float32)
+
+
+def arg_specs(spec: PipelineSpec, cfg: MatcherConfig, height: int, width: int,
+              batch: int = 1, *, device: str | torch.device, seed: int = 0) -> tuple:
+    """Example inputs of a pipeline on ``device``, made from ``seed``: images
+    (batch, 1, height, width) uniform in [0, 255], a plausible ``k_inv``,
+    or the tensor-input pipeline's own (``make_args``). They serve tracing
+    (``torch.export`` takes example tensors where the JAX package takes
+    abstract shapes) and verification."""
+    rng = np.random.default_rng(seed)
+    if spec.make_args is not None:
+        arrays = spec.make_args(cfg, height, width, batch, rng)
+    else:
+        arrays = [rng.uniform(0, 255, (batch, 1, height, width)).astype(np.float32)
+                  for _ in range(spec.n_images)]
+        if spec.takes_k_inv:
+            arrays.append(k_inv_for(height, width))
+    return tuple(torch.from_numpy(np.asarray(a, dtype=np.float32)).to(device) for a in arrays)
+
+
+def compile_model(name: str, height: int, width: int, batch: int = 1,
+                  cfg: MatcherConfig | None = None, *, device: str | torch.device,
+                  **overrides) -> Callable:
+    """The pipeline exported at a static shape and called once on
+    ``device`` (which builds and loads the kernels there); returns the
+    exported program's callable module. The JAX package's compile step has
+    an XLA cost analysis; a ``torch.export`` program has none."""
+    from .serialize import export_model
+
+    spec = get(name)
+    fn = export_model(name, height, width, batch, cfg, device=device, **overrides).module()
+    fn(*arg_specs(spec, resolve_config(spec, cfg, **overrides), height, width, batch,
+                  device=device))
+    return fn
 
 
 class Batched(nn.Module):
@@ -175,9 +229,14 @@ def _dense_map(image, cfg: MatcherConfig, table: BADTable):
                      soft_binarize=cfg.soft_binarize, temperature=cfg.temperature)
 
 
+def essential_grid_side(cfg: MatcherConfig) -> int:
+    """Side of the standalone estimator's pixel grid: sqrt(K)."""
+    return max(2, math.isqrt(cfg.max_keypoints))
+
+
 def _grid_essential(p, k_inv, cfg: MatcherConfig):
     """The standalone estimator on a sqrt(K) x sqrt(K) pixel grid."""
-    side = max(2, math.isqrt(cfg.max_keypoints))
+    side = essential_grid_side(cfg)
     return estimate_essential_matrix(p, k_inv, image_shape=(side, side))
 
 
@@ -224,7 +283,8 @@ register(PipelineSpec(
 register(PipelineSpec(
     "shi_tomasi_angle_sparse_bad",
     lambda cfg: TableHead(cfg, shi_tomasi_angle_sparse_bad_detect),
-    _BASE.with_(block_size=5), "single-image keypoints + oriented descriptors", n_images=1))
+    _BASE.with_(block_size=5), "single-image keypoints + oriented descriptors", n_images=1,
+    selects_keypoints=True))
 register(PipelineSpec(
     "bad", lambda cfg: TableHead(cfg, _dense_map), _BASE,
     "dense BAD descriptor map (binarize / soft_binarize select none, soft or hard)", n_images=1))
@@ -232,12 +292,16 @@ register(PipelineSpec("akaze", lambda cfg: Standalone(cfg, akaze_detect_cfg), _B
                       "AKAZE scores + orientation maps", n_images=1))
 register(PipelineSpec(
     "sinkhorn", lambda cfg: Standalone(cfg, sinkhorn_cfg), _BASE,
-    "standalone Sinkhorn matcher on (B, K, D) descriptor tensors", n_images=0))
+    "standalone Sinkhorn matcher on (B, K, D) descriptor tensors", n_images=0,
+    make_args=lambda cfg, h, w, b, rng: [
+        rng.normal(size=(b, cfg.max_keypoints, cfg.num_pairs)) for _ in range(2)]))
 register(PipelineSpec(
     "essential_matrix_estimator", lambda cfg: Standalone(cfg, _grid_essential),
     _BASE,
     "standalone grid-variant weighted-8-point E estimator on a Sinkhorn "
-    "matrix and k_inv (feature index i maps to a sqrt(K) x sqrt(K) pixel grid)", n_images=0))
+    "matrix and k_inv (feature index i maps to a sqrt(K) x sqrt(K) pixel grid)", n_images=0,
+    make_args=lambda cfg, h, w, b, rng: [
+        rng.uniform(0, 1, (essential_grid_side(cfg) ** 2 + 1,) * 2), k_inv_for(h, w)]))
 
 # FAST / DoG heads: their hyperparameters come from the config's nested
 # FASTConfig / DoGConfig, so overrides like fast_threshold=30 reach the op.
@@ -262,7 +326,8 @@ register(PipelineSpec(
     _BASE, "DoG max-|response| score map", n_images=1))
 
 # The JAX registry's deployment size of the standalone voxel export (its
-# executables are specialized per N); the port's module takes any N.
+# executables are specialized per N), the size of the static export's
+# example; the port's module takes any N.
 VOXEL_EXPORT_POINTS = 8192
 
 register(PipelineSpec(
@@ -270,4 +335,6 @@ register(PipelineSpec(
     lambda cfg: Standalone(cfg, lambda pts, leaf, c: voxel_downsampling(pts, leaf)),
     _BASE,
     "standalone voxel-grid downsampling: (N, 3) points + a 0-dim leaf size on the "
-    "module's device -> (N, 3) centroids + validity mask", n_images=0))
+    "module's device -> (N, 3) centroids + validity mask", n_images=0,
+    make_args=lambda cfg, h, w, b, rng: [rng.uniform(0, 2, (VOXEL_EXPORT_POINTS, 3)),
+                                         np.float32(0.05)]))

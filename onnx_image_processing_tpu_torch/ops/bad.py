@@ -191,8 +191,8 @@ def box_sample_inputs(image: torch.Tensor, keypoints: torch.Tensor,
     x = image.to(torch.float32)[:, 0]
     b, h, w = x.shape
     ps = _PATCH
-    ky = keypoints[:, :, 0].clamp(0.0, float(h - 1))
-    kx = keypoints[:, :, 1].clamp(0.0, float(w - 1))
+    ky = keypoints[:, :, 0].clamp(0.0, h - 1)
+    kx = keypoints[:, :, 1].clamp(0.0, w - 1)
     off_y = table.off_y[None, None, :]   # (1, 1, S)
     off_x = table.off_x[None, None, :]
 
@@ -216,8 +216,8 @@ def box_sample_inputs(image: torch.Tensor, keypoints: torch.Tensor,
     else:
         dy, dx = off_y, off_x
 
-    pos_y = (ky[..., None] + dy).clamp(0.0, float(h - 1))
-    pos_x = (kx[..., None] + dx).clamp(0.0, float(w - 1))
+    pos_y = (ky[..., None] + dy).clamp(0.0, h - 1)
+    pos_x = (kx[..., None] + dx).clamp(0.0, w - 1)
 
     # Images smaller than the window are edge-extended to ps x ps; sample
     # positions stay clamped to the real image.

@@ -112,7 +112,15 @@ def block_route(topk_mode: str, nms_radius: int, h: int, w: int, max_keypoints: 
     if topk_mode != "block" or nms_radius < 1:
         return False
     bs = nms_radius + 1
-    return -(-h // bs) * -(-w // bs) >= max_keypoints
+    blocks = -(-h // bs) * -(-w // bs)
+    if isinstance(blocks, torch.SymInt):
+        # A trace with symbolic H and W serves only shapes with enough
+        # blocks (the JAX package's symbolic scope has the same constraint);
+        # the check stays in the program and raises on a smaller image.
+        torch._check(blocks >= max_keypoints, lambda: (
+            f"the {bs}x{bs} block grid must hold max_keypoints={max_keypoints} blocks"))
+        return True
+    return blocks >= max_keypoints
 
 
 def nms_select_topk(scores: torch.Tensor, max_keypoints: int,

@@ -62,8 +62,10 @@ def voxel_downsampling(points: torch.Tensor, leaf_size) -> tuple[torch.Tensor, t
     # axis of (N, D) runs one sequential thread per column on the card.
     csum = torch.cumsum((spts - sbase).T.contiguous(), dim=1).T
     idx1 = torch.arange(1, n + 1, dtype=torch.int32, device=pts.device)
-    is_end = torch.cat([skey[1:] != skey[:-1],
-                        torch.ones(1, dtype=torch.bool, device=pts.device)])
+    # Neighbours by rolling, not by slices of n - 1 rows: a symbolic trace
+    # would then need n >= 3.
+    last, first = idx1 == n, idx1 == 1
+    is_end = (skey != skey.roll(-1)) | last
     m = is_end.sum()
 
     _, order2 = torch.sort((~is_end).to(torch.int32), stable=True)
@@ -71,8 +73,8 @@ def voxel_downsampling(points: torch.Tensor, leaf_size) -> tuple[torch.Tensor, t
     cnt_end = idx1.index_select(0, order2)
     base = sbase.index_select(0, order2)
 
-    prev = torch.cat([cend.new_zeros((1, d)), cend[:-1]])
-    prev_cnt = torch.cat([cnt_end.new_zeros(1), cnt_end[:-1]])
+    prev = torch.where(first[:, None], 0.0, cend.roll(1, 0))
+    prev_cnt = torch.where(first, 0, cnt_end.roll(1))
     counts = cnt_end - prev_cnt
     mask = torch.arange(n, device=pts.device) < m
     means = base + (cend - prev) / counts.clamp(min=1).to(torch.float32)[:, None]

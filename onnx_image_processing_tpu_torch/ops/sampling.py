@@ -11,7 +11,9 @@ import torch
 
 
 def _clamp_coords(y: torch.Tensor, x: torch.Tensor, h: int, w: int):
-    return y.clamp(0.0, float(h - 1)), x.clamp(0.0, float(w - 1))
+    # The bounds stay integers (float() would fix a symbolic size under a
+    # trace); the clamp compares in float32 either way.
+    return y.clamp(0.0, h - 1), x.clamp(0.0, w - 1)
 
 
 def sample_nearest(img: torch.Tensor, y: torch.Tensor,

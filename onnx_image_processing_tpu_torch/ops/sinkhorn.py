@@ -34,11 +34,11 @@ def _l1_cost(desc1: torch.Tensor, desc2: torch.Tensor) -> torch.Tensor:
 
 
 def _l2_cost(desc1: torch.Tensor, desc2: torch.Tensor) -> torch.Tensor:
-    """Squared L2 of (N, D) and (M, D) via norms and one full-f32 product."""
+    """Squared L2 of (N, D) and (M, D) via norms and one product (full
+    float32 under :func:`_cost_matrix`'s ``full_fp32``)."""
     n1 = torch.sum(desc1 * desc1, dim=-1, keepdim=True)   # (N, 1)
     n2 = torch.sum(desc2 * desc2, dim=-1, keepdim=True)   # (M, 1)
-    with full_fp32():
-        dots = desc1 @ desc2.T
+    dots = desc1 @ desc2.T
     return torch.clamp_min(n1 + n2.T - 2.0 * dots, 0.0)
 
 
@@ -55,9 +55,25 @@ def _cost_matrix(desc1: torch.Tensor, desc2: torch.Tensor,
         cost = _l1_cost
     else:
         raise ValueError(f"distance_type must be 'l1' or 'l2', got {distance_type}")
-    if desc1.shape[0] == 1:
-        return cost(desc1[0], desc2[0])[None]
-    return torch.stack([cost(d1, d2) for d1, d2 in zip(desc1, desc2)])
+    b = desc1.shape[0]
+    with full_fp32():
+        if isinstance(b, torch.SymInt):
+            # A trace with a symbolic batch: the same per-entry cost, as a
+            # loop that runs when the traced program does (its body may not
+            # touch global state, hence full_fp32 out here).
+            from torch._higher_order_ops.map import map as map_entries
+
+            return map_entries(lambda pair: cost(*pair), (desc1, desc2))
+        if b == 1:
+            return cost(desc1[0], desc2[0])[None]
+        return torch.stack([cost(d1, d2) for d1, d2 in zip(desc1, desc2)])
+
+
+def _log_count(count, b: int, device: torch.device) -> torch.Tensor:
+    """(b, 1) float32 log of a size: the float64 log rounded to float32 (the
+    correctly rounded value), computed on the device from a size that may be
+    symbolic, so no host copy and no specialization."""
+    return torch.full((b, 1), count, dtype=torch.float64, device=device).log().float()
 
 
 def sinkhorn_inputs(desc1: torch.Tensor, desc2: torch.Tensor,
@@ -76,14 +92,9 @@ def sinkhorn_inputs(desc1: torch.Tensor, desc2: torch.Tensor,
     log_scores = torch.nn.functional.pad(-cost / epsilon, (0, 1, 0, 1),
                                          value=-unused_score / epsilon)
     dev = desc1.device
-    # float32 log of the counts, taken on the host: a scalar made on the card
-    # would be a blocking copy.
-    log_m = torch.log(torch.tensor(float(m), dtype=torch.float32)).item()
-    log_n = torch.log(torch.tensor(float(n), dtype=torch.float32)).item()
-    log_mu = torch.zeros((b, n + 1), dtype=torch.float32, device=dev)
-    log_mu[:, n] = log_m
-    log_nu = torch.zeros((b, m + 1), dtype=torch.float32, device=dev)
-    log_nu[:, m] = log_n
+    f32 = dict(dtype=torch.float32, device=dev)
+    log_mu = torch.cat([torch.zeros((b, n), **f32), _log_count(m, b, dev)], dim=1)
+    log_nu = torch.cat([torch.zeros((b, m), **f32), _log_count(n, b, dev)], dim=1)
     return log_scores.contiguous(), log_mu, log_nu
 
 

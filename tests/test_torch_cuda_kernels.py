@@ -593,3 +593,58 @@ def test_sinkhorn_entry_does_not_depend_on_its_batch(dev, n):
         assert all(torch.equal(p[i], alone[i][0]) for i in range(b)), b
     cost_b = ops.sinkhorn_inputs(d1[:3], d2[:3], 0.05)[0]
     assert torch.equal(cost_b[1], ops.sinkhorn_inputs(d1[1:2], d2[1:2], 0.05)[0][0])
+
+
+def _to(args, dev):
+    return tuple(a.to(dev) if isinstance(a, torch.Tensor) else a for a in args)
+
+
+@pytest.mark.parametrize("case", ["nms_block_reduce", "nms_select_blocks", "box_sample",
+                                  "sinkhorn_core", "detect_frontend",
+                                  "detect_frontend_no_angle", "detect_select", "akaze_ladder"])
+def test_opcheck_on_the_card(dev, case):
+    """``torch.library.opcheck`` of each kernel op on CUDA tensors (the
+    CPU tier's cases, moved to the card): schema, fake tensor, AOT dispatch
+    with dynamic shapes, each running the hand kernel."""
+    from test_torch_custom_ops import CASES, SEED
+
+    op, make, _ = CASES[case]
+    args = _to(make(np.random.default_rng(SEED)), dev)
+    reset_launch_counts()
+    torch.library.opcheck(op, args)
+    assert sum(launch_counts().values()) > 0
+
+
+def test_cuda_artifact_equals_eager(dev, tmp_path):
+    """The flagship exported on the card, saved and loaded: the eager
+    module's outputs bit for bit, with the same launches (each > 0)."""
+    name = "shi_tomasi_angle_sparse_bad_sinkhorn_extraction"
+    kw = dict(max_keypoints=256, max_matches=128)
+    rng = np.random.default_rng(23)
+    pair = tuple(torch.from_numpy(rng.uniform(0, 255, (1, 1, 240, 320)).astype(np.float32))
+                 .to(dev) for _ in range(2))
+    path = models.save_exported(models.export_model(name, 240, 320, device=dev, **kw),
+                                models.artifact_path(str(tmp_path), name, dev))
+    assert path.endswith(".cuda.pt2")
+    loaded = models.load_exported(path)
+    eager = models.build(name, device=dev, **kw)
+    counts = []
+    outs = []
+    for fn in (eager, loaded):
+        reset_launch_counts()
+        outs.append(fn(*pair))
+        torch.cuda.synchronize()
+        counts.append(launch_counts())
+    assert counts[0] == counts[1]
+    assert all(counts[1][k] > 0 for k in ("select_frontend", "sparse_sampler", "sinkhorn"))
+    assert all(torch.equal(a, b) for a, b in zip(*outs))
+
+
+def test_log_marginals_equal_the_cpu(dev):
+    """The Sinkhorn log-marginals, made on the device from the sizes: the
+    same float32 values as on the CPU."""
+    for n in (7, 47, 255, 512, 513, 1024, 4097):
+        d = torch.zeros((1, n, 4))
+        cpu = ops.sinkhorn_inputs(d, d[:, :3])[1:]
+        card = ops.sinkhorn_inputs(d.to(dev), d[:, :3].to(dev))[1:]
+        assert all(torch.equal(a, b.cpu()) for a, b in zip(cpu, card)), n
