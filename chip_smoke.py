@@ -52,6 +52,12 @@ Phases (any failed check raises; nothing falls back to the CPU):
    launch counts per frame, streaming vs two-image on the card, E on the
    card vs the CPU, E finite and rank 2, the median Sampson error of the
    valid matches; ms per frame for extract and match, host syncs per frame.
+   Then (R, t) of every frame by the port's NumPy ``recover_pose`` (no
+   OpenCV) from the card's E and matches and from the CPU's, against the
+   truth (R = I, t along +-x): per-frame rotation and t-direction errors,
+   medians and failures side by side; the card's median rotation error at
+   most the CPU's + 0.3 deg, its failures at most the CPU's + 1, the RANSAC
+   flagship's inside absolute bars.
 8. The dense family at 480x640: the dense matcher
    ``shi_tomasi_bad_sinkhorn`` at its registry defaults (1024 keypoints, 512
    pairs sampled bilinearly, a 1025x1025 Sinkhorn) as phase 3, and its
@@ -87,6 +93,13 @@ Phases (any failed check raises; nothing falls back to the CPU):
    The flagship's dynamic artifact equals eager at 480x640 and 240x320, and
    its streaming pair (extract, match) matches the two-image matcher
    (keypoints equal, P within 1e-5).
+12. The mesh and the soak: ``parallel.shard_batch(models.build_batched(
+   flagship), parallel.make_mesh())`` over 4 texture pairs against the
+   unsharded call (bit for bit, the same launches); then
+   ``tools.soak``: 120 seeded draws of the flagship, AKAZE, essential, ties
+   and ragged Sinkhorn families, each on the card and on the CPU, compared,
+   held to the soak's invariants and to the launches of its path; the
+   draws per family, failures and seconds.
 
 The last two lines are a JSON object of per-kernel results (each with its
 launches on the paths, launches per call of its path, error against its
@@ -144,6 +157,17 @@ SAMPSON_PX = 2.0        # median Sampson error bound (SAMPSON_PX / fx)^2
 # 4364.585 x (2 / fx)^2 (the port on the CPU 4351.251 x). The AKAZE path is
 # held to 1.5x JAX's value; the RANSAC flagship to the bound itself.
 JAX_AKAZE_SAMPSON_RATIO = 4364.585
+# Poses from each frame's E (the port's NumPy recover_pose, 2-px Sampson
+# votes), card vs CPU on the same frames: the card's median rotation error
+# at most the CPU's + 0.3 deg, its failures at most the CPU's + 1. The
+# RANSAC flagship's poses on the CPU (the port, torch 2.13.0+cpu):
+# median rotation error 0.0160 deg (max 0.039), median t-direction error
+# 5.62 deg, 0 failures of 15; its absolute bars leave 0.084 deg, 9.38 deg
+# and 1 failure of headroom. The AKAZE path's soft LS E misses the 2-px
+# vote on 14 of 15 frames on the CPU too (its Sampson error, above): no
+# absolute bar.
+POSE_ROT_GAP_DEG, POSE_FAIL_SLACK = 0.3, 1
+POSE_BARS_RANSAC = (0.1, 15.0, 1)   # median rotation deg, median t-direction deg, failures
 # Phase 8, the dense family.
 DENSE_ATOL = 1e-4       # static-shift dense maps, card vs CPU
 ORIENTED_ATOL = 2e-3    # oriented map, sampler kernel vs gather (tests/test_bad_parity.py:183)
@@ -160,6 +184,14 @@ REFINE_ATOL = 1e-5      # refined keypoints and scores
 SERVE_P_ATOL = 1e-5     # batched vs per-pair P (tests/test_parallel.py:246-248)
 SERVE_PAIRS, SERVE_CHUNKS, SERVE_DEPTHS = 22, (1, 4, 8), (1, 2)
 SERVE_REPS = 5          # timed streams per (chunk, depth)
+# Phase 12: the mesh at B = 4, then the soak: its draws from one seed, the
+# families in turn with Sinkhorn twice (seed 0's first 30 draws already
+# hold every family at least twice, 4 ragged Sinkhorn draws at B >= 4, a
+# hi-res AKAZE draw on the ladder's global route, ties draws in both top-k
+# modes; 120 draws took 54-56 s on an H100).
+MESH_B = 4
+SOAK_SEED, SOAK_ITERS = 0, 120
+SOAK_FAMILIES = ("flagship", "akaze", "essential", "ties", "sinkhorn", "sinkhorn")
 # Peak rates of one H100 SXM: HBM3 bandwidth and dense FP32 throughput.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
@@ -920,6 +952,78 @@ def run_export(g_pair, paths: dict) -> None:
         check(kpt_same and p_err <= SERVE_P_ATOL, "[export streaming] differs from two-image")
 
 
+def run_mesh(dev, paths: dict) -> None:
+    """Phase 12, the mesh: ``shard_batch(build_batched(flagship),
+    make_mesh())`` over B = 4 texture pairs on every card of the machine,
+    against the unsharded call: outputs bit for bit, the same launches."""
+    import torch
+    from onnx_image_processing_tpu_torch import models
+    from onnx_image_processing_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from onnx_image_processing_tpu_torch.parallel import make_mesh, shard_batch
+
+    mesh = make_mesh()
+    fb = models.build_batched(FLAGSHIP, max_keypoints=MAX_KEYPOINTS, device=dev)
+    i1, i2 = (np.concatenate(side) for side in zip(*(texture_pair(s) for s in range(MESH_B))))
+    reset_launch_counts()
+    local = fb(torch.from_numpy(i1).to(dev), torch.from_numpy(i2).to(dev))
+    torch.cuda.synchronize()
+    counts_local = launch_counts()
+    sharded_fn = shard_batch(fb, mesh)
+    reset_launch_counts()
+    out = sharded_fn(i1, i2)
+    for d in mesh.devices:
+        torch.cuda.synchronize(d)
+    counts = launch_counts()
+    same = all(torch.equal(s.gather(dev), t) for s, t in zip(out, local))
+    print(f"[mesh] shard_batch(build_batched(flagship), make_mesh()) over {len(mesh)} "
+          f"device(s) {[str(d) for d in mesh.devices]} at B = {MESH_B}: outputs equal to the "
+          f"unsharded call bit for bit {same}; launches {json.dumps(counts, sort_keys=True)} "
+          f"(unsharded {json.dumps(counts_local, sort_keys=True)})")
+    check(same, "[mesh] the sharded call differs from the unsharded one")
+    check(counts == counts_local, "[mesh] the sharded call launched other kernels")
+    check_counts("mesh", counts, {"select_frontend", "sparse_sampler", "sinkhorn"})
+    paths["mesh"] = counts
+
+
+def run_soak(dev) -> None:
+    """Phase 12, the soak: ``tools.soak``'s draws, card against CPU, one
+    after another; the draw list must hold what the phase promises."""
+    from onnx_image_processing_tpu_torch.kernels import akaze_ladder
+    from onnx_image_processing_tpu_torch.tools import soak
+
+    draws = soak.draws(SOAK_SEED, SOAK_ITERS, SOAK_FAMILIES)
+    per_family = {f: sum(d["family"] == f for d in draws) for f in soak.FAMILIES}
+    ragged = sum(d["family"] == "sinkhorn" and d["n"] != d["m"] and d["b"] >= 4
+                 for d in draws)
+    a = soak.matcher_config({"family": "akaze"})[1].akaze
+    global_route = [d["idx"] for d in draws if d["family"] == "akaze" and d["hires"]
+                    and akaze_ladder.device_plan(2, d["h"], d["w"], a.nms_size // 2,
+                                                 a.orientation_patch_size // 2,
+                                                 dev).route == "global"]
+    tie_modes = {d["topk_mode"] for d in draws if d["family"] == "ties"}
+    print(f"[soak] seed {SOAK_SEED}, {SOAK_ITERS} draws, families in turn {SOAK_FAMILIES}: "
+          f"per family {per_family}; ragged Sinkhorn at B >= 4: {ragged}; hi-res AKAZE on the "
+          f"ladder's global route: draws {global_route}; ties top-k modes {sorted(tie_modes)}")
+    check(min(per_family.values()) >= 2 and ragged >= 4 and global_route
+          and tie_modes == {"block", "sort"}, "[soak] the draws miss a promised case")
+    t0 = time.perf_counter()
+    failed = []
+    for d in draws:
+        t = time.perf_counter()
+        errs, counts = soak.run_draw(d, dev, "cpu")
+        launched = sorted(k for k, c in counts.items() if c)
+        print(f"[soak] {'ok' if not errs else 'FAIL'} draw {d['idx']} {d['family']} "
+              f"({time.perf_counter() - t:.2f} s, kernels {launched})"
+              + ("" if not errs else f": {d}"))
+        for e in errs:
+            print(f"[soak]     {e}")
+        if errs:
+            failed.append(d["idx"])
+    print(f"[soak] draws per family {per_family}; failures {len(failed)} {failed}; "
+          f"{time.perf_counter() - t0:.2f} s")
+    check(not failed, f"[soak] draws {failed} failed")
+
+
 def bound(nbytes: float, ops: float) -> dict:
     """The least time the card could take: the larger of the bytes over the
     memory rate and the operations over the float32 rate."""
@@ -958,7 +1062,70 @@ def e_diff(a, b) -> float:
     return float(min(np.abs(a - b).max(), np.abs(a + b).max()))
 
 
-def run_vo(label, name, overrides, frames_g, frames_c, k_inv, expect_zero, sampson_max):
+def pose_errors(host, intr):
+    """Per frame, (R, t) from the frame's E and valid matches by the port's
+    NumPy ``recover_pose``, against the truth of ``vo_sequence`` (R = I,
+    t along +-x): the rotation error and the angle between t and the x
+    axis, in degrees; None where the pose step fails."""
+    from onnx_image_processing_tpu_torch.vo import recover_pose
+
+    errs = []
+    for mk1, mk2, _, valid, e in host:
+        v = valid[0]
+        r, t, _ = recover_pose(e, mk1[0][v], mk2[0][v], intr)
+        if r is None:
+            errs.append(None)
+            continue
+        rot = np.degrees(np.arccos(np.clip((np.trace(r) - 1) / 2, -1, 1)))
+        tdir = np.degrees(np.arccos(min(1.0, abs(t[0, 0]) / np.linalg.norm(t))))
+        errs.append((float(rot), float(tdir)))
+    return errs
+
+
+def vo_poses(label, host_g, host_c, k_inv, bars) -> None:
+    """Poses of the card's and of the CPU's E and matches, side by side:
+    per-frame rotation and t-direction errors, failures, medians. The
+    card's median rotation error may exceed the CPU's by POSE_ROT_GAP_DEG
+    (where both sides have poses) and it may fail POSE_FAIL_SLACK frames
+    more; ``bars`` (median rotation, median t-direction, failures), where
+    given, bind both sides."""
+    from onnx_image_processing_tpu_torch.vo import CameraIntrinsics
+
+    kk = np.linalg.inv(k_inv.astype(np.float64))
+    intr = CameraIntrinsics(kk[0, 0], kk[1, 1], kk[0, 2], kk[1, 2], W, H)
+    sides = {"card": pose_errors(host_g, intr), "CPU": pose_errors(host_c, intr)}
+
+    def fmt(x):
+        return "fail" if x is None else f"{x[0]:.3f}/{x[1]:.2f}"
+
+    print(f"[{label}] pose per frame, rotation / t-direction error in degrees, card | CPU: "
+          + ", ".join(f"{fmt(g)} | {fmt(c)}" for g, c in zip(sides["card"], sides["CPU"])))
+    med = {}
+    for side, errs in sides.items():
+        ok = [x for x in errs if x is not None]
+        rot, tdir = (float(np.median([x[i] for x in ok])) if ok else None for i in (0, 1))
+        med[side] = (rot, tdir, len(errs) - len(ok))
+        print(f"[{label}] {side} poses: median rotation error "
+              f"{'-' if rot is None else f'{rot:.4f}'} deg, median t-direction error "
+              f"{'-' if tdir is None else f'{tdir:.3f}'} deg, failures {med[side][2]} of "
+              f"{len(errs)}")
+    (rot_g, _, fail_g), (rot_c, _, fail_c) = med["card"], med["CPU"]
+    gap = None if rot_g is None or rot_c is None else rot_g - rot_c
+    print(f"[{label}] card - CPU median rotation error "
+          f"{'-' if gap is None else f'{gap:+.4f}'} deg (max +{POSE_ROT_GAP_DEG}); failures "
+          f"card {fail_g}, CPU {fail_c} (max CPU + {POSE_FAIL_SLACK}); absolute bars "
+          + ("none" if bars is None else "median rotation <= {} deg, t-direction <= {} deg, "
+             "failures <= {}".format(*bars)))
+    check(gap is None or gap <= POSE_ROT_GAP_DEG, f"[{label}] the card's poses rotate worse")
+    check(fail_g <= fail_c + POSE_FAIL_SLACK, f"[{label}] the card fails more poses")
+    for side, (rot, tdir, fails) in med.items():
+        check(bars is None or (rot is not None and rot <= bars[0] and tdir <= bars[1]
+                               and fails <= bars[2]),
+              f"[{label}] the {side}'s poses miss the absolute bars")
+
+
+def run_vo(label, name, overrides, frames_g, frames_c, k_inv, expect_zero, sampson_max,
+           pose_bars):
     """Drive the VO device path on the card as the VO loop does: the
     streaming split with mutual-NN extraction, each new frame extracted once
     and matched against the cached features of the frame before it, one
@@ -997,6 +1164,14 @@ def run_vo(label, name, overrides, frames_g, frames_c, k_inv, expect_zero, samps
         for k, c in counts.items():
             totals[k] = totals.get(k, 0) + c
         ref = feats
+    # The same frames through the same path on the CPU, for the poses.
+    extract_c, match_c = models.build_streaming(name + "_extraction", device="cpu", **kw)
+    host_c, ref = [], extract_c(frames_c[0])
+    for img in frames_c[1:]:
+        feats = extract_c(img)
+        host_c.append(to_host(match_c(ref, feats, kinv_c)))
+        ref = feats
+    vo_poses(label, host, host_c, k_inv, pose_bars)
     print(f"[{label}] launches per frame:", json.dumps(per_frame[0], sort_keys=True),
           f"(the same in all {len(per_frame)} frames: {all(c == per_frame[0] for c in per_frame)})")
     expect_zero = (*expect_zero, ABLATE)
@@ -1524,11 +1699,11 @@ def main() -> None:
           f"{sampson_bound:.4e}")
     paths["VO AKAZE"] = run_vo("VO AKAZE", AKAZE + "_essential_matrix", {}, frames_g, frames_c,
                                k_inv, ("detect_frontend",),
-                               1.5 * JAX_AKAZE_SAMPSON_RATIO * sampson_bound)
+                               1.5 * JAX_AKAZE_SAMPSON_RATIO * sampson_bound, None)
     paths["VO RANSAC"] = run_vo(
         "VO RANSAC", FLAGSHIP + "_essential_matrix",
         dict(essential_ransac_hypotheses=256, essential_irls_iters=2), frames_g, frames_c,
-        k_inv, unfused_zero, sampson_bound)
+        k_inv, unfused_zero, sampson_bound, POSE_BARS_RANSAC)
 
     # ---- phase 8: the dense family ---------------------------------------------
     run_dense((g1, g2), (c1, c2), paths)
@@ -1570,6 +1745,12 @@ def main() -> None:
     t11 = time.perf_counter()
     run_export((g1, g2), paths)
     print(f"phase 11: {time.perf_counter() - t11:.2f} s")
+
+    # ---- phase 12: the mesh and the soak --------------------------------------
+    t12 = time.perf_counter()
+    run_mesh(dev, paths)
+    run_soak(dev)
+    print(f"phase 12: {time.perf_counter() - t12:.2f} s")
 
     sources = {"select_frontend": ("select_frontend.cu", "kernels/select_frontend.py:329", "flagship"),
                "sparse_sampler": ("sparse_sampler.cu", "kernels/sparse_sampler.py:411", "flagship"),

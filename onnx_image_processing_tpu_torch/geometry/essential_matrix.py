@@ -6,7 +6,8 @@ The functions take leading batch dimensions where JAX ``vmap``s them (the
 RANSAC hypotheses), so the batched and the single solve are one code path.
 Every product runs in full float32 (:func:`..core.full_fp32`), where JAX
 pins ``Precision.HIGHEST``: on the card a float32 product may otherwise run
-as TF32. Nothing branches on a tensor's value, so the only host syncs are
+as TF32; the 9x9 eigenproblems are solved in float64 (:func:`min_eigvec9`).
+Nothing branches on a tensor's value, so the only host syncs are
 the ones ``torch.linalg.eigh`` and ``torch.linalg.svd`` make on a CUDA
 tensor to check their status.
 """
@@ -86,7 +87,12 @@ def _chol_solve(a: torch.Tensor, rhs: torch.Tensor, jitter=0.0) -> torch.Tensor:
 def min_eigvec9(m: torch.Tensor, n_iter: int = 30, method: str = "eigh") -> torch.Tensor:
     """Minimum eigenvector of symmetric PSD (..., 9, 9) matrices.
 
-    ``"eigh"``: exact ``torch.linalg.eigh``. ``"fast"``: shifted inverse
+    ``"eigh"``: exact ``torch.linalg.eigh``, in float64 (a 9x9 matrix: the
+    cost is nothing). The normal matrix is ill-conditioned, and a float32
+    eigh on an H100 (cuSOLVER) returns a worse smallest eigenvector than
+    the CPU's: on ``chip_smoke.py`` phase 7's VO frames the RANSAC refit
+    with it tripled the median t-direction error of the recovered pose
+    (16.8 deg against the CPU's 5.7). ``"fast"``: shifted inverse
     iteration with the unrolled 9x9 Cholesky solve (three steps).
     ``"power"``: the reference's trace-shifted power iteration, for parity
     tests only (it does not converge in ``n_iter`` steps on real data).
@@ -101,7 +107,7 @@ def min_eigvec9(m: torch.Tensor, n_iter: int = 30, method: str = "eigh") -> torc
             v = v / (_norm(v) + 1e-30)
         return v
     if method == "eigh":
-        return torch.linalg.eigh(m)[1][..., :, 0]
+        return torch.linalg.eigh(m.double())[1][..., :, 0].to(m.dtype)
     if method != "power":
         raise ValueError(f"min_eigvec9: unknown method {method!r} "
                          "(expected 'eigh', 'fast', or 'power')")

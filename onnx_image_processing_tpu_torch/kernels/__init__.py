@@ -20,6 +20,12 @@ implementation that gives its output shapes from the inputs' (symbolic)
 sizes, so ``torch.export`` keeps it as one node of a graph without calling
 it; an exported program runs the hand kernels on the card. The sampler's
 stage ablation, reached only by a tool, stays a direct call.
+
+The C entries read the current device (``cudaGetDevice``) to set their
+per-device attributes, and launch on PyTorch's current stream of the
+tensor's device, so each op makes its tensor's device current around its
+launch: a tensor on a second card never launches on the first card's
+context.
 """
 
 from __future__ import annotations

@@ -228,16 +228,18 @@ def akaze_ladder_op(image: torch.Tensor, num_scales: int, diffusion_iterations: 
         tags = torch.empty((b, plan.ny, plan.nx), dtype=torch.int32, device=dev)
         fn = _build.entry("oip_akaze_ladder_resident", _RESIDENT_ARGTYPES)
         # The taps go by value into the launch's parameters.
-        err = fn(_build.ptr(image), host_taps.ctypes.data_as(ctypes.c_void_p),
-                 _build.ptr(state), _build.ptr(tags),
-                 _build.ptr(scores), _build.ptr(m10), _build.ptr(m01), *args, plan.ny,
-                 plan.nx, plan.out_rows, plan.smem_bytes, _build.stream(image))
+        with torch.cuda.device(image.device):
+            err = fn(_build.ptr(image), host_taps.ctypes.data_as(ctypes.c_void_p),
+                     _build.ptr(state), _build.ptr(tags),
+                     _build.ptr(scores), _build.ptr(m10), _build.ptr(m01), *args, plan.ny,
+                     plan.nx, plan.out_rows, plan.smem_bytes, _build.stream(image))
     else:
         fn = _build.entry("oip_akaze_ladder", _ARGTYPES)
         taps = _build.constant(host_taps, dev)
-        err = fn(_build.ptr(image), _build.ptr(taps), _build.ptr(state[0]),
-                 _build.ptr(state[1]), _build.ptr(scores), _build.ptr(m10),
-                 _build.ptr(m01), *args, _build.stream(image))
+        with torch.cuda.device(image.device):
+            err = fn(_build.ptr(image), _build.ptr(taps), _build.ptr(state[0]),
+                     _build.ptr(state[1]), _build.ptr(scores), _build.ptr(m10),
+                     _build.ptr(m01), *args, _build.stream(image))
     _build.check(err, "akaze_ladder launch")
     LAUNCHES.count += 1
     return scores, m10, m01

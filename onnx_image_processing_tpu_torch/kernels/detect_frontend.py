@@ -250,9 +250,10 @@ def detect_frontend_op(image: torch.Tensor, block_size: int, patch_size: int, si
     fn = _build.entry("oip_detect_frontend", _ARGTYPES)
     # Without the angle the kernel reads no taps and writes no moments (NULL).
     moments = (_build.ptr(m10), _build.ptr(m01)) if with_angle else (None, None)
-    err = fn(_build.ptr(image), taps.ctypes.data_as(ctypes.c_void_p) if with_angle else None,
-             _build.ptr(score), *moments, b, h, w, rb, rn, half, int(with_angle),
-             plan.th, plan.tw, _build.stream(image))
+    with torch.cuda.device(image.device):
+        err = fn(_build.ptr(image), taps.ctypes.data_as(ctypes.c_void_p) if with_angle else None,
+                 _build.ptr(score), *moments, b, h, w, rb, rn, half, int(with_angle),
+                 plan.th, plan.tw, _build.stream(image))
     _build.check(err, "detect_frontend launch")
     LAUNCHES.count += 1
     return score, m10, m01
@@ -329,12 +330,13 @@ def detect_select_op(image: torch.Tensor, block_size: int, patch_size: int, sigm
     taps = _taps(sigma, patch_size)
     fn = _build.entry("oip_detect_select", _SELECT_ARGTYPES)
     moments = (_build.ptr(m10), _build.ptr(m01)) if with_angle else (None, None)
-    err = fn(_build.ptr(image), taps.ctypes.data_as(ctypes.c_void_p) if with_angle else None,
-             _build.ptr(score), *moments, _build.ptr(block_max), _build.ptr(block_idx),
-             _build.ptr(counters), None if keys is None else _build.ptr(keys),
-             _build.ptr(kpts), _build.ptr(kscores), b, h, w, rb, rn, half, int(with_angle),
-             plan.th, plan.tw, border_margin, score_threshold, k,
-             0 if keys is None else p2, _build.stream(image))
+    with torch.cuda.device(image.device):
+        err = fn(_build.ptr(image), taps.ctypes.data_as(ctypes.c_void_p) if with_angle else None,
+                 _build.ptr(score), *moments, _build.ptr(block_max), _build.ptr(block_idx),
+                 _build.ptr(counters), None if keys is None else _build.ptr(keys),
+                 _build.ptr(kpts), _build.ptr(kscores), b, h, w, rb, rn, half, int(with_angle),
+                 plan.th, plan.tw, border_margin, score_threshold, k,
+                 0 if keys is None else p2, _build.stream(image))
     _build.check(err, "detect_select launch")
     LAUNCHES.count += 1
     return kpts, kscores, score, m10, m01

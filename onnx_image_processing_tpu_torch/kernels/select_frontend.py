@@ -95,8 +95,9 @@ def nms_block_reduce_op(scores: torch.Tensor, nms_radius: int, score_threshold: 
     block_max = torch.empty((b, hb, wb), dtype=torch.float32, device=scores.device)
     block_idx = torch.empty((b, hb, wb), dtype=torch.int32, device=scores.device)
     fn = _build.entry("oip_select_frontend", _ARGTYPES)
-    err = fn(_build.ptr(scores), _build.ptr(block_max), _build.ptr(block_idx),
-             b, h, w, nms_radius, border_margin, score_threshold, _build.stream(scores))
+    with torch.cuda.device(scores.device):
+        err = fn(_build.ptr(scores), _build.ptr(block_max), _build.ptr(block_idx),
+                 b, h, w, nms_radius, border_margin, score_threshold, _build.stream(scores))
     _build.check(err, "select_frontend launch")
     LAUNCHES.count += 1
     return block_max, block_idx
@@ -160,11 +161,12 @@ def nms_select_blocks_op(scores: torch.Tensor, nms_radius: int, max_keypoints: i
             else None)
     fn = _build.entry("oip_select_topk", _TOPK_ARGTYPES)
     counters = _build.ticket_counters(dev, b, "nms_select_blocks")
-    err = fn(_build.ptr(scores), _build.ptr(block_max), _build.ptr(block_idx),
-             _build.ptr(counters), None if keys is None else _build.ptr(keys),
-             _build.ptr(kpts), _build.ptr(kscores), b, h, w, nms_radius,
-             border_margin, score_threshold, k,
-             0 if keys is None else p2, _build.stream(scores))
+    with torch.cuda.device(scores.device):
+        err = fn(_build.ptr(scores), _build.ptr(block_max), _build.ptr(block_idx),
+                 _build.ptr(counters), None if keys is None else _build.ptr(keys),
+                 _build.ptr(kpts), _build.ptr(kscores), b, h, w, nms_radius,
+                 border_margin, score_threshold, k,
+                 0 if keys is None else p2, _build.stream(scores))
     _build.check(err, "select_frontend top-k launch")
     LAUNCHES.count += 1
     return kpts, kscores

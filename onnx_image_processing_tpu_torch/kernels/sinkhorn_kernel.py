@@ -145,10 +145,11 @@ def sinkhorn_core_op(log_scores: torch.Tensor, log_mu: torch.Tensor,
     v = torch.empty((b, m1), dtype=torch.int64, device=dev)
     p = torch.empty((b, n1, m1), dtype=torch.float32, device=dev)
     fn = _build.entry("oip_sinkhorn", _ARGTYPES)
-    err = fn(log_scores.data_ptr(), log_mu.data_ptr(), log_nu.data_ptr(), u.data_ptr(),
-             v.data_ptr(), p.data_ptr(), b, n1, m1, iters, plan.ctas, plan.groups,
-             plan.lines, plan.res_rows, plan.res_cols, plan.smem_bytes,
-             _build.stream(log_scores))
+    with torch.cuda.device(log_scores.device):
+        err = fn(log_scores.data_ptr(), log_mu.data_ptr(), log_nu.data_ptr(), u.data_ptr(),
+                 v.data_ptr(), p.data_ptr(), b, n1, m1, iters, plan.ctas, plan.groups,
+                 plan.lines, plan.res_rows, plan.res_cols, plan.smem_bytes,
+                 _build.stream(log_scores))
     _build.check(err, "sinkhorn launch")
     LAUNCHES.count += 1
     return p

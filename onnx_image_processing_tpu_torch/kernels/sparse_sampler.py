@@ -136,8 +136,9 @@ def box_sample_op(image_padded: torch.Tensor, start_y: torch.Tensor,
     out = _checked_output(image_padded, start_y, start_x, ly, lx, radius, ps, r_max)
     plan = _device_plan(triples, ly.shape[2], image_padded.device)
     fn = _build.entry("oip_sparse_sampler", _ARGTYPES)
-    err = fn(*_pointers(image_padded, start_y, start_x, ly, lx, plan, out),
-             *_dims(image_padded, ly), ps, r_max, int(bilinear), _build.stream(image_padded))
+    with torch.cuda.device(image_padded.device):
+        err = fn(*_pointers(image_padded, start_y, start_x, ly, lx, plan, out),
+                 *_dims(image_padded, ly), ps, r_max, int(bilinear), _build.stream(image_padded))
     _build.check(err, "sparse_sampler launch")
     LAUNCHES.count += 1
     return out
@@ -191,9 +192,10 @@ def box_sample_ablated(image_padded: torch.Tensor, start_y: torch.Tensor,
     mask = sum(STAGES[name] for name in set(skip))
     plan = _device_plan(groups, ly.shape[2], image_padded.device)
     fn = _build.entry("oip_sparse_sampler_ablate", _ABLATE_ARGTYPES)
-    err = fn(*_pointers(image_padded, start_y, start_x, ly, lx, plan, out),
-             *_dims(image_padded, ly), ps, r_max, int(bilinear), mask, float("nan"),
-             _build.stream(image_padded))
+    with torch.cuda.device(image_padded.device):
+        err = fn(*_pointers(image_padded, start_y, start_x, ly, lx, plan, out),
+                 *_dims(image_padded, ly), ps, r_max, int(bilinear), mask, float("nan"),
+                 _build.stream(image_padded))
     _build.check(err, "sparse_sampler_ablate launch")
     ABLATE_LAUNCHES.count += 1
     return out

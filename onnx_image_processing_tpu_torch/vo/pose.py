@@ -1,10 +1,14 @@
 """Host-side pose estimation for visual odometry.
 
-Counterpart of `pytorch_model/vo/pose_estimation.py`: OpenCV RANSAC pose
-recovery plus SE(3) helpers. This layer stays on the host (NumPy/OpenCV) —
-pose math on a handful of matches is not device work; the device path feeds
-it either matched keypoints or an in-graph essential matrix
-(``recover_pose``). A copy of ``onnx_image_processing_tpu/vo/pose.py``.
+Counterpart of `pytorch_model/vo/pose_estimation.py`: RANSAC pose recovery
+plus SE(3) helpers. This layer stays on the host (NumPy) — pose math on a
+handful of matches is not device work; the device path feeds it either
+matched keypoints or an in-graph essential matrix (``recover_pose``). A
+copy of ``onnx_image_processing_tpu/vo/pose.py``, except that
+``recover_pose`` and ``triangulate_points`` compute what its OpenCV calls
+compute in NumPy float64, so the in-graph-E pose step runs where OpenCV is
+absent. ``estimate_pose_ransac`` (a host RANSAC, ``cv2.findEssentialMat``)
+still needs OpenCV.
 """
 
 from __future__ import annotations
@@ -99,6 +103,46 @@ def estimate_pose_ransac(
     return r, t, (mask.ravel() != 0) & (pose_mask.ravel() > 0)
 
 
+def decompose_essential(essential: np.ndarray):
+    """``cv2.decomposeEssentialMat``: the SVD of E with U and Vt flipped to
+    determinant +1; R1 = U W Vt, R2 = U W^T Vt, t = U[:, 2], with OpenCV's W.
+    Returns (R1, R2, t (3,)) in float64."""
+    u, _, vt = np.linalg.svd(np.asarray(essential, dtype=np.float64).reshape(3, 3))
+    if np.linalg.det(u) < 0:
+        u = -u
+    if np.linalg.det(vt) < 0:
+        vt = -vt
+    w = np.array([[0.0, 1.0, 0.0], [-1.0, 0.0, 0.0], [0.0, 0.0, 1.0]])
+    return u @ w @ vt, u @ w.T @ vt, u[:, 2].copy()
+
+
+def _triangulate_dlt(p1: np.ndarray, p2: np.ndarray, x1: np.ndarray,
+                     x2: np.ndarray) -> np.ndarray:
+    """``cv2.triangulatePoints``: per point, the right singular vector of the
+    smallest singular value of the 4x4 system of both views' rows
+    x P[2] - P[0] and y P[2] - P[1]. ``x1``, ``x2`` are (N, 2); returns
+    unit homogeneous points (4, N), their sign arbitrary."""
+    rows = []
+    for p, x in ((p1, x1), (p2, x2)):
+        rows += [x[:, 0:1] * p[2] - p[0], x[:, 1:2] * p[2] - p[1]]
+    a = np.stack(rows, axis=1)                      # (N, 4, 4)
+    return np.linalg.svd(a)[2][:, 3, :].T
+
+
+def _chirality(p1: np.ndarray, x1: np.ndarray, x2: np.ndarray,
+               distance_thresh: float) -> np.ndarray:
+    """OpenCV's chirality mask of one candidate [R | t]: the point
+    triangulated from the identity camera and ``p1`` has positive depth
+    below ``distance_thresh`` in both cameras."""
+    q = _triangulate_dlt(np.eye(3, 4), p1, x1, x2)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        mask = q[2] * q[3] > 0
+        q = q / q[3]
+        mask &= q[2] < distance_thresh
+        depth2 = (p1 @ q)[2]
+        return mask & (depth2 > 0) & (depth2 < distance_thresh)
+
+
 def recover_pose(
     essential: np.ndarray,
     keypoints1: np.ndarray,
@@ -110,6 +154,18 @@ def recover_pose(
     """Chirality-resolved (R, t) from a known essential matrix and (y, x)
     matches — the host step after the in-graph-E pipelines
     (`sample/visual_odometry.py:95-143`).
+
+    What ``cv2.recoverPose(E, pts1, pts2, K, distanceThresh=, mask=)``
+    computes, in NumPy float64 (no OpenCV): the points normalized by K; the
+    four candidates of :func:`decompose_essential` in OpenCV's order
+    (R1, t), (R2, t), (R1, -t), (R2, -t); for each, the DLT triangulation
+    of every match and the chirality mask (depth > 0 in both cameras and
+    < ``distance_thresh``) ANDed with the vote mask; the candidate with the
+    most votes wins, the first on a tie (OpenCV's ``>=`` rule). The SVD may
+    give U and Vt other signs than OpenCV's, which can swap t with -t (and
+    R1 with R2) in that order; the four candidates, and each one's votes,
+    are the same, so the chosen (R, t) is OpenCV's unless two candidates
+    tie for the most votes.
 
     Two measured robustness divergences from the reference's bare
     ``cv2.recoverPose(E, pts1, pts2, K)`` call (same spirit as the
@@ -127,17 +183,16 @@ def recover_pose(
       CORRECT points from voting and the decision is made by noise. The
       explicit-threshold overload with a large bound restores the vote.
 
-    Returns (R | None, t | None, inlier_mask (N,) bool).
+    Returns (R (3, 3) | None, t (3, 1) | None, inlier_mask (N,) bool).
     """
-    _require_cv2()
     n = len(keypoints1)
     if n < 5:
         return None, None, np.zeros(n, dtype=bool)
-    pts1 = np.ascontiguousarray(keypoints1[:, [1, 0]], dtype=np.float64)
-    pts2 = np.ascontiguousarray(keypoints2[:, [1, 0]], dtype=np.float64)
-    e = essential.astype(np.float64)
+    pts1 = np.asarray(keypoints1, dtype=np.float64)[:, [1, 0]]
+    pts2 = np.asarray(keypoints2, dtype=np.float64)[:, [1, 0]]
+    e = np.asarray(essential, dtype=np.float64)
 
-    vote_mask = None
+    vote_mask = np.ones(n, dtype=bool)
     if sampson_px is not None:
         k_inv = np.linalg.inv(intrinsics.K)
         x1 = np.concatenate([pts1, np.ones((n, 1))], axis=1) @ k_inv.T
@@ -148,16 +203,23 @@ def recover_pose(
              / (l2[:, 0] ** 2 + l2[:, 1] ** 2
                 + l1[:, 0] ** 2 + l1[:, 1] ** 2 + 1e-12))
         tau = (sampson_px / intrinsics.fx) ** 2
-        vote_mask = (s < tau).astype(np.uint8).reshape(-1, 1)
+        vote_mask = s < tau
         if vote_mask.sum() < 5:
             return None, None, np.zeros(n, dtype=bool)
 
-    num, r, t, mask, _ = cv2.recoverPose(e, pts1, pts2, intrinsics.K,
-                                         distanceThresh=distance_thresh,
-                                         mask=vote_mask)
+    k = intrinsics.K
+    centre, focal = np.array([k[0, 2], k[1, 2]]), np.array([k[0, 0], k[1, 1]])
+    n1, n2 = (pts1 - centre) / focal, (pts2 - centre) / focal
+    r1, r2, t = decompose_essential(e)
+    candidates = ((r1, t), (r2, t), (r1, -t), (r2, -t))
+    masks = [_chirality(np.hstack([r, tc[:, None]]), n1, n2, distance_thresh) & vote_mask
+             for r, tc in candidates]
+    best = int(np.argmax([m.sum() for m in masks]))   # the first of the most votes
+    num = int(masks[best].sum())
     if num < 5:
         return None, None, np.zeros(n, dtype=bool)
-    return r, t, mask.ravel() > 0
+    r, tc = candidates[best]
+    return r, tc.reshape(3, 1), masks[best]
 
 
 def triangulate_points(
@@ -167,16 +229,18 @@ def triangulate_points(
     r2: np.ndarray, t2: np.ndarray,
     intrinsics: CameraIntrinsics,
 ) -> np.ndarray:
-    """Two-view triangulation with near-zero-w degeneracy guard.
+    """Two-view triangulation with near-zero-w degeneracy guard: the DLT of
+    ``cv2.triangulatePoints``, in NumPy float64 (no OpenCV). The
+    homogeneous solution's sign differs from OpenCV's at will; the
+    dehomogenized points do not.
 
     Parity: `vo/pose_estimation.py:118-162`.
     """
-    _require_cv2()
-    p1 = intrinsics.K @ np.hstack([r1, t1.reshape(3, 1)])
-    p2 = intrinsics.K @ np.hstack([r2, t2.reshape(3, 1)])
-    pts1 = np.ascontiguousarray(keypoints1[:, [1, 0]], dtype=np.float64).T
-    pts2 = np.ascontiguousarray(keypoints2[:, [1, 0]], dtype=np.float64).T
-    x4 = cv2.triangulatePoints(p1, p2, pts1, pts2)
+    p1 = intrinsics.K @ np.hstack([r1, np.reshape(t1, (3, 1))])
+    p2 = intrinsics.K @ np.hstack([r2, np.reshape(t2, (3, 1))])
+    pts1 = np.asarray(keypoints1, dtype=np.float64)[:, [1, 0]]
+    pts2 = np.asarray(keypoints2, dtype=np.float64)[:, [1, 0]]
+    x4 = _triangulate_dlt(p1, p2, pts1, pts2)
     w = x4[3]
     ok = np.abs(w) > 1e-9
     out = np.zeros((3, x4.shape[1]), dtype=np.float64)

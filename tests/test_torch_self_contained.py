@@ -111,3 +111,19 @@ def test_import_needs_neither_cv2_nor_pil_nor_jax():
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}); assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120, cwd=ROOT)
+
+
+def test_pose_step_needs_no_opencv():
+    """The in-graph-E pose step (``recover_pose``, ``triangulate_points``
+    and the helpers they call) names no ``cv2``; only the host RANSAC
+    (``estimate_pose_ransac``) does."""
+    path = PORT / "vo" / "pose.py"
+    funcs = {node.name: node for node in ast.parse(path.read_text()).body
+             if isinstance(node, ast.FunctionDef)}
+    names = {name: {n.id for n in ast.walk(f) if isinstance(n, ast.Name)}
+             for name, f in funcs.items()}
+    free = ("recover_pose", "triangulate_points", "decompose_essential", "_triangulate_dlt",
+            "_chirality")
+    for name in free:
+        assert not names[name] & {"cv2", "_require_cv2"}, name
+    assert "cv2" in names["estimate_pose_ransac"]
