@@ -100,6 +100,18 @@ Phases (any failed check raises; nothing falls back to the CPU):
    and ragged Sinkhorn families, each on the card and on the CPU, compared,
    held to the soak's invariants and to the launches of its path; the
    draws per family, failures and seconds.
+13. The CLIs' chain protocol on the card (``cli.common``): the flagship, the
+   fused flagship, AKAZE, the dense, unoriented and with-filters matchers
+   (``_extraction`` forms, 256 matches) on the pair, and the heads
+   ``shi_tomasi``, ``fast``, ``dog_with_score``, ``akaze`` on its first
+   image and ``voxel_downsampling`` on 8,192 points: a CUDA graph of one
+   call, replayed 5 times on the path's inputs and a second input in turn
+   (the texture pair; the points' axes mirrored), equals the eager call on
+   the same inputs bit for bit; then
+   ``chain_times`` at n = 30 (two graphs of 30 and 90 chained calls) and
+   the host loop of ``run_benchmark``, with the graph's nodes, the capture
+   seconds and the peak memory, one JSON line per path. The essential
+   matcher must refuse the chain (``ValueError``) before any capture.
 
 The last two lines are a JSON object of per-kernel results (each with its
 launches on the paths, launches per call of its path, error against its
@@ -1024,6 +1036,111 @@ def run_soak(dev) -> None:
     check(not failed, f"[soak] draws {failed} failed")
 
 
+CHAIN_N = 30          # phase 13: chain lengths n and 3n
+GRAPH_REPLAYS = 5     # phase 13: replays of the graph of one call, each held to eager
+# Phase 13's paths: label, registry name, overrides, kernels it launches.
+CHAIN_PATHS = (
+    ("flagship", FLAGSHIP + "_extraction", dict(max_keypoints=MAX_KEYPOINTS),
+     ("select_frontend", "sparse_sampler", "sinkhorn")),
+    ("fused", FLAGSHIP + "_extraction", dict(max_keypoints=MAX_KEYPOINTS, fused_detect=True),
+     ("detect_frontend", "sparse_sampler", "sinkhorn")),
+    ("AKAZE", AKAZE + "_extraction", {},
+     ("akaze_ladder", "select_frontend", "sparse_sampler", "sinkhorn")),
+    ("dense", DENSE + "_extraction", {}, ("select_frontend", "sparse_sampler", "sinkhorn")),
+    ("unoriented", UNORIENTED + "_extraction", dict(max_keypoints=MAX_KEYPOINTS),
+     ("select_frontend", "sparse_sampler", "sinkhorn")),
+    ("filters", FILTERS + "_extraction", dict(max_keypoints=MAX_KEYPOINTS),
+     ("select_frontend", "sparse_sampler", "sinkhorn")),
+    ("shi_tomasi", "shi_tomasi", {}, ()),
+    ("fast", "fast", {}, ()),
+    ("dog_with_score", "dog_with_score", {}, ()),
+    ("akaze head", "akaze", {}, ("akaze_ladder",)),
+    ("voxel_downsampling", "voxel_downsampling", {}, ()),
+)
+
+
+def leaves(out) -> tuple:
+    return tuple(out) if isinstance(out, (tuple, list)) else (out,)
+
+
+def graph_nodes(graph) -> int:
+    """Nodes of a kept CUDA graph (``cuGraphGetNodes`` of the driver)."""
+    import ctypes
+
+    n = ctypes.c_size_t(0)
+    err = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes(
+        ctypes.c_void_p(graph.raw_cuda_graph()), None, ctypes.byref(n))
+    check(err == 0, f"cuGraphGetNodes failed: CUresult {err}")
+    return n.value
+
+
+def run_chain(g1, g2, paths: dict) -> None:
+    """Phase 13: each path captured in CUDA graphs, as ``--timing chain``
+    runs it. A graph of one call equals eager bit for bit; the chain's ms
+    per frame, the host loop's, nodes, capture seconds and peak memory."""
+    import torch
+    from onnx_image_processing_tpu_torch import models
+    from onnx_image_processing_tpu_torch.cli import common
+    from onnx_image_processing_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    dev = g1.device
+    t1, t2 = (torch.from_numpy(a).to(dev) for a in texture_pair())
+    with torch.inference_mode():
+        for label, name, kw, kernels in CHAIN_PATHS:
+            spec = models.get(name)
+            extra = dict(max_matches=MAX_MATCHES) if name.endswith("_extraction") else {}
+            fn = models.build(name, device=dev, **extra, **kw)
+            if spec.make_args is not None:
+                args = models.arg_specs(spec, fn.cfg, H, W, device=dev)
+                other = tuple(a.flip(-1) if a.dim() else a for a in args)
+            else:
+                args, other = (g1, g2)[:spec.n_images], (t1, t2)[:spec.n_images]
+            # The graph reads its inputs from `static`. Replays alternate
+            # between the path's inputs and a second input (the texture pair;
+            # the points' axes mirrored), each held to eager on the same
+            # inputs: a launch that escaped the graph would leave the other
+            # input's outputs behind.
+            inputs = (args, other)
+            static = tuple(a.clone() for a in args)
+            reset_launch_counts()
+            eager = [leaves(fn(*x)) for x in inputs]
+            one = common.capture(lambda: fn(*static), dev, keep_graph=True)
+            same = 0
+            for i in range(GRAPH_REPLAYS):
+                for dst, src in zip(static, inputs[i % 2]):
+                    dst.copy_(src)
+                one.graph.replay()
+                torch.cuda.synchronize()
+                same += outputs_equal(leaves(one.out), eager[i % 2])
+            nodes = graph_nodes(one.graph)
+            del one
+            chain = common.chain_times(fn, args, n=CHAIN_N)
+            torch.cuda.synchronize()
+            paths[f"chain {label}"] = counts = launch_counts()
+            check_counts(f"chain {label}", counts, kernels)
+            check(same == GRAPH_REPLAYS, f"[chain {label}] the graph of one call differs from "
+                  f"eager on {GRAPH_REPLAYS - same} of {GRAPH_REPLAYS} replays")
+            check(not outputs_equal(*eager), f"[chain {label}] the second input gives the "
+                  "same outputs, so the replays cannot tell them apart")
+            host_ms = common.run_benchmark(fn, args, "host")
+            if label == "flagship":
+                common.run_benchmark(fn, args, "chain")
+            print(json.dumps({
+                "phase13": label, "name": name, "graph_of_one_equal": f"{same}/{GRAPH_REPLAYS}",
+                "nodes_per_call": nodes, "chain_ms_per_frame": chain.ms_per_frame,
+                "chain_n": CHAIN_N, "t_n_s": chain.short_s, "t_3n_s": chain.long_s,
+                "host_ms_per_frame": host_ms, "capture_s": chain.capture_s,
+                "peak_mib": chain.peak_bytes / 2 ** 20}))
+        ess = models.build(AKAZE + "_essential_matrix", device=dev)
+        spec = models.get(AKAZE + "_essential_matrix")
+        try:
+            common.benchmark_chain(ess, models.arg_specs(spec, ess.cfg, H, W, device=dev))
+        except ValueError as e:
+            print(f"[chain essential] refused before capture: {e}")
+        else:
+            check(False, "[chain essential] the essential matcher's chain did not raise")
+
+
 def bound(nbytes: float, ops: float) -> dict:
     """The least time the card could take: the larger of the bytes over the
     memory rate and the operations over the float32 rate."""
@@ -1751,6 +1868,11 @@ def main() -> None:
     run_mesh(dev, paths)
     run_soak(dev)
     print(f"phase 12: {time.perf_counter() - t12:.2f} s")
+
+    # ---- phase 13: the CLIs' chain protocol, whole paths in CUDA graphs -------
+    t13 = time.perf_counter()
+    run_chain(g1, g2, paths)
+    print(f"phase 13: {time.perf_counter() - t13:.2f} s")
 
     sources = {"select_frontend": ("select_frontend.cu", "kernels/select_frontend.py:329", "flagship"),
                "sparse_sampler": ("sparse_sampler.cu", "kernels/sparse_sampler.py:411", "flagship"),

@@ -3,7 +3,7 @@
     python -m onnx_image_processing_tpu_torch.cli.feature_detection -i img.png --device cuda
 
 Port of ``onnx_image_processing_tpu/cli/feature_detection.py``, with the same
-flags (``--device {cuda,cpu}`` in place of ``--platform`` and ``--timing``):
+flags (``--device {cuda,cpu}`` in place of ``--platform``):
 run a detector pipeline on the device, select keypoints on the host (NMS,
 threshold, top-k, sub-pixel parabola refinement) and draw them. The device
 part is :func:`detect`, which takes and returns arrays; image reading and
@@ -20,7 +20,8 @@ from torch import nn
 
 from .. import models
 from ..utils import select_keypoints, visualize_keypoints
-from .common import add_device_arg, load_image, report_benchmark, select_device
+from .common import (add_device_arg, add_timing_arg, load_image, run_benchmark,
+                     select_device)
 
 # Detector hyperparameter flags, passed as flat config overrides.
 _DETECTOR_FLAGS = ("fast_threshold", "fast_use_nms", "fast_nms_radius",
@@ -50,6 +51,7 @@ def parse_args(argv=None):
                    help="color keypoints by score (blue=low, red=high)")
     p.add_argument("--benchmark", action="store_true",
                    help="print warmup+timed ms/frame")
+    add_timing_arg(p)
     g = p.add_argument_group("detector hyperparameters")
     g.add_argument("--fast-threshold", type=float, default=None,
                    help="FAST intensity threshold (default 20)")
@@ -89,7 +91,7 @@ def main(argv=None):
     scores = detect(fn, arr)
     if args.benchmark:
         with torch.inference_mode():
-            report_benchmark(fn, (torch.from_numpy(arr).to(device),))
+            run_benchmark(fn, (torch.from_numpy(arr).to(device),), args.timing)
 
     kpts = select_keypoints(scores, threshold=args.threshold,
                             max_keypoints=args.max_keypoints,

@@ -3,7 +3,7 @@
     python -m onnx_image_processing_tpu_torch.cli.image_matching -i1 a.png -i2 b.png --device cuda
 
 Port of ``onnx_image_processing_tpu/cli/image_matching.py``, with the same
-flags (``--device {cuda,cpu}`` in place of ``--platform`` and ``--timing``):
+flags (``--device {cuda,cpu}`` in place of ``--platform``):
 run a matcher pipeline on the device, extract mutual-NN matches on the host
 and draw them side by side. The device part is :func:`match`, which takes
 and returns arrays; image reading and drawing (PIL) stay in :func:`main`.
@@ -19,7 +19,8 @@ from torch import nn
 
 from .. import models
 from ..utils import extract_matches, visualize_matches
-from .common import add_device_arg, load_image, report_benchmark, select_device
+from .common import (add_device_arg, add_timing_arg, load_image, run_benchmark,
+                     select_device)
 
 
 def parse_args(argv=None):
@@ -35,10 +36,11 @@ def parse_args(argv=None):
                    help="override pipeline max keypoints")
     p.add_argument("--topk-mode", choices=["block", "sort", "approx"], default=None,
                    help="keypoint selection: block (default), sort (reference-exact "
-                        "ties); approx is not ported")
+                        "ties), approx (approximate on a TPU only: selects as block here)")
     p.add_argument("--match-threshold", "-t", type=float, default=0.1)
     p.add_argument("--max-matches", type=int, default=100)
     p.add_argument("--no-benchmark", action="store_true")
+    add_timing_arg(p)
     p.add_argument("--colorize", action="store_true",
                    help="color match lines by confidence (blue=low, red=high)")
     add_device_arg(p)
@@ -69,8 +71,8 @@ def main(argv=None):
     k1, k2, p = match(fn, arr1, arr2)
     if not args.no_benchmark:
         with torch.inference_mode():
-            report_benchmark(fn, (torch.from_numpy(arr1).to(device),
-                                  torch.from_numpy(arr2).to(device)))
+            run_benchmark(fn, (torch.from_numpy(arr1).to(device),
+                               torch.from_numpy(arr2).to(device)), args.timing)
 
     mk1, mk2, scores = extract_matches(p[None] if p.ndim == 2 else p,
                                        k1, k2, threshold=args.match_threshold,

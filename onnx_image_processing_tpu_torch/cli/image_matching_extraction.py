@@ -4,10 +4,10 @@ mutual-NN match extraction runs on the device.
     python -m onnx_image_processing_tpu_torch.cli.image_matching_extraction -i1 a.png -i2 b.png
 
 Port of ``onnx_image_processing_tpu/cli/image_matching_extraction.py``, with
-the same flags (``--device {cuda,cpu}`` in place of ``--platform`` and
-``--timing``): the pipeline returns fixed-size matched pairs; the host keeps
-the valid ones and draws them. The device part is :func:`match`, which takes
-and returns arrays; image reading and drawing (PIL) stay in :func:`main`.
+the same flags (``--device {cuda,cpu}`` in place of ``--platform``): the
+pipeline returns fixed-size matched pairs; the host keeps the valid ones
+and draws them. The device part is :func:`match`, which takes and returns
+arrays; image reading and drawing (PIL) stay in :func:`main`.
 """
 
 from __future__ import annotations
@@ -20,7 +20,8 @@ from torch import nn
 
 from .. import models
 from ..utils import visualize_matches
-from .common import add_device_arg, load_image, report_benchmark, select_device
+from .common import (add_device_arg, add_timing_arg, load_image, run_benchmark,
+                     select_device)
 
 
 def parse_args(argv=None):
@@ -38,9 +39,10 @@ def parse_args(argv=None):
                    help="override pipeline max matches")
     p.add_argument("--topk-mode", choices=["block", "sort", "approx"], default=None,
                    help="keypoint selection: block (default), sort (reference-exact "
-                        "ties); approx is not ported")
+                        "ties), approx (approximate on a TPU only: selects as block here)")
     p.add_argument("--match-threshold", "-t", type=float, default=None)
     p.add_argument("--no-benchmark", action="store_true")
+    add_timing_arg(p)
     p.add_argument("--colorize", action="store_true",
                    help="color match lines by confidence (blue=low, red=high)")
     add_device_arg(p)
@@ -77,8 +79,8 @@ def main(argv=None):
     mk1, mk2, scores = match(fn, arr1, arr2)
     if not args.no_benchmark:
         with torch.inference_mode():
-            report_benchmark(fn, (torch.from_numpy(arr1).to(device),
-                                  torch.from_numpy(arr2).to(device)))
+            run_benchmark(fn, (torch.from_numpy(arr1).to(device),
+                               torch.from_numpy(arr2).to(device)), args.timing)
     print(f"Matches: {len(mk1)}")
 
     vis = visualize_matches(rgb1, rgb2, mk1, mk2, scores,

@@ -85,9 +85,11 @@ class MatcherConfig:
     # where the reference keeps every tied copy; see ops/keypoints.py).
     # "sort": reference-exact flat top-k over H*W.
     # "approx": block reduction + lax.approx_max_k (recall 0.95) — APPROXIMATE
-    # (a few % of rank-boundary keypoints may swap with near-ties); the TopK
-    # custom call is 17% of the 1080p frame, and this cuts it 5x. Opt-in for
-    # hi-res throughput serving (ops/keypoints.py, BASELINE.md).
+    # on a TPU only (a few % of rank-boundary keypoints may swap with
+    # near-ties; there the TopK custom call is 17% of the 1080p frame, and
+    # this cuts it 5x; opt-in for hi-res throughput serving, BASELINE.md).
+    # On every other backend lax.approx_max_k is the exact top-k, so the
+    # port, on the CPU and on the card, selects exactly as "block".
     topk_mode: str = "block"
 
     # Shi-Tomasi detector

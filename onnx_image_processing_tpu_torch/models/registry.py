@@ -53,6 +53,9 @@ class PipelineSpec:
     # Inputs of a tensor-input pipeline: (cfg, height, width, batch, rng) ->
     # numpy arrays (images are (batch, 1, height, width) otherwise).
     make_args: Callable | None = None
+    # Why a call cannot be captured in a CUDA graph (it reads a value on the
+    # host), for cli.common.benchmark_chain; None where it can be.
+    capture_blocker: str | None = None
 
 
 _REGISTRY: dict[str, PipelineSpec] = {}
@@ -96,7 +99,10 @@ def build(name: str, cfg: MatcherConfig | None = None, *,
     ``takes_k_inv``.
     """
     spec = get(name)
-    return spec.factory(resolve_config(spec, cfg, **overrides)).to(torch.device(device)).eval()
+    module = spec.factory(resolve_config(spec, cfg, **overrides)).to(torch.device(device)).eval()
+    module.pipeline_name = name
+    module.capture_blocker = spec.capture_blocker
+    return module
 
 
 def k_inv_for(height: int, width: int) -> np.ndarray:
@@ -261,14 +267,22 @@ for _name, _cls, _defaults, _desc in _MATCHERS:
         lambda cfg, cls=_cls: with_match_extraction(cls(cfg)), _defaults,
         _desc + " + mutual-NN match extraction"))
 
+# cuSOLVER's eigh and svd on a CUDA tensor copy their status to the host
+# and check it: a synchronize in every solve.
+_SOLVER_SYNC = ("the essential solve's torch.linalg.eigh (geometry/essential_matrix.py "
+                "min_eigvec9) and torch.linalg.svd (project_onto_essential_manifold) read "
+                "cuSOLVER's status on the host")
+
 register(PipelineSpec(
     "shi_tomasi_angle_sparse_bad_sinkhorn_essential_matrix",
     ShiTomasiAngleSparseBADSinkhornEssential, _CI.with_(block_size=5),
-    "flagship matcher + in-graph essential matrix", takes_k_inv=True))
+    "flagship matcher + in-graph essential matrix", takes_k_inv=True,
+    capture_blocker=_SOLVER_SYNC))
 register(PipelineSpec(
     "akaze_sparse_bad_sinkhorn_essential_matrix",
     AKAZESparseBADSinkhornEssential, _AKAZE,
-    "AKAZE matcher + in-graph essential matrix", takes_k_inv=True))
+    "AKAZE matcher + in-graph essential matrix", takes_k_inv=True,
+    capture_blocker=_SOLVER_SYNC))
 
 register(PipelineSpec(
     "shi_tomasi",
@@ -301,7 +315,8 @@ register(PipelineSpec(
     "standalone grid-variant weighted-8-point E estimator on a Sinkhorn "
     "matrix and k_inv (feature index i maps to a sqrt(K) x sqrt(K) pixel grid)", n_images=0,
     make_args=lambda cfg, h, w, b, rng: [
-        rng.uniform(0, 1, (essential_grid_side(cfg) ** 2 + 1,) * 2), k_inv_for(h, w)]))
+        rng.uniform(0, 1, (essential_grid_side(cfg) ** 2 + 1,) * 2), k_inv_for(h, w)],
+    capture_blocker=_SOLVER_SYNC))
 
 # FAST / DoG heads: their hyperparameters come from the config's nested
 # FASTConfig / DoGConfig, so overrides like fast_threshold=30 reach the op.

@@ -32,6 +32,7 @@ from ..ops import (BADTable, angle_estimation, angle_moments, block_route, dense
                    load_bad_params, nms_select_topk, select_topk_keypoints,
                    shi_tomasi_score, sinkhorn_match, sinkhorn_match_with_filters,
                    sparse_bad)
+from ..ops.keypoints import BLOCK_MODES
 
 
 def _resolve_border_margin(cfg: MatcherConfig, table: BADTable,
@@ -56,7 +57,7 @@ def _select_premasked(masked_b1hw: torch.Tensor, cfg: MatcherConfig,
     """Top-k over a map that already carries the NMS mask (the detect
     frontend's ``score * nms_mask``): a plain block or flat select."""
     masked = masked_b1hw[:, 0]
-    block_r = cfg.nms_radius if cfg.topk_mode == "block" else None
+    block_r = cfg.nms_radius if cfg.topk_mode in BLOCK_MODES else None
     return select_topk_keypoints(masked, torch.ones_like(masked),
                                  cfg.max_keypoints, cfg.score_threshold,
                                  margin, nms_radius=block_r)
@@ -268,11 +269,6 @@ def shi_tomasi_angle_sparse_bad_sinkhorn_match_with_filters(
         image1, image2, lambda x: _sparse_detect_describe(x, cfg, table)), cfg)
 
 
-def _check_ported(cfg: MatcherConfig) -> None:
-    if cfg.topk_mode not in ("block", "sort"):
-        raise NotImplementedError(f"topk_mode {cfg.topk_mode!r} is not ported")
-
-
 def _check_devices(module_device: torch.device, *images: torch.Tensor) -> None:
     for i, img in enumerate(images, 1):
         if img.device != module_device:
@@ -293,7 +289,6 @@ class SparseMatcher(nn.Module):
 
     def __init__(self, cfg: MatcherConfig, table: BADTable | None = None):
         super().__init__()
-        _check_ported(cfg)
         self.cfg = cfg
         self.table = table if table is not None else BADTable(
             load_bad_params(cfg.num_pairs))

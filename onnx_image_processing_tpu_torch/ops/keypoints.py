@@ -5,7 +5,10 @@ Keypoints are (B, K, 2) float32 in (y, x) order; invalid slots are (-1, -1)
 with score 0. Top-k keeps ``lax.top_k``'s rule that equal values go lowest
 index first: ``torch.topk`` promises no tie order, so selection is a stable
 descending sort sliced to K. The JAX package's XLA-TPU sort tuning (chunked
-top-k, rank-2 folds) and its approximate mode are not ported.
+top-k, rank-2 folds) is not ported. ``topk_mode="approx"`` selects exactly
+as ``"block"``: ``lax.approx_max_k`` approximates on a TPU only and is the
+exact top-k on every other backend, which is what the JAX package computes
+here.
 """
 
 from __future__ import annotations
@@ -106,10 +109,14 @@ def _select_blocks(block_max, block_idx, max_keypoints: int, w: int):
     return _decode_topk(topk_scores, topk_idx.long(), w)
 
 
+BLOCK_MODES = ("block", "approx")
+
+
 def block_route(topk_mode: str, nms_radius: int, h: int, w: int, max_keypoints: int) -> bool:
-    """Whether selection takes the block top-k: block mode, an NMS radius of
-    at least 1, and at least ``max_keypoints`` blocks of (r+1)^2 pixels."""
-    if topk_mode != "block" or nms_radius < 1:
+    """Whether selection takes the block top-k: block (or approx) mode, an
+    NMS radius of at least 1, and at least ``max_keypoints`` blocks of
+    (r+1)^2 pixels."""
+    if topk_mode not in BLOCK_MODES or nms_radius < 1:
         return False
     bs = nms_radius + 1
     blocks = -(-h // bs) * -(-w // bs)
@@ -130,8 +137,9 @@ def nms_select_topk(scores: torch.Tensor, max_keypoints: int,
 
     In block mode the NMS, masks, block reduction, block top-k and decode
     run as one launch of the select-frontend kernel on a CUDA tensor, and
-    as its plain version on a CPU tensor. ``topk_mode="sort"``, and a map
-    with fewer blocks than ``max_keypoints``, take the flat top-k.
+    as its plain version on a CPU tensor. ``topk_mode="approx"`` is
+    ``"block"``; ``"sort"``, and a map with fewer blocks than
+    ``max_keypoints``, take the flat top-k.
 
     Returns:
         keypoints (B, K, 2) float (y, x); scores (B, K).
@@ -140,9 +148,9 @@ def nms_select_topk(scores: torch.Tensor, max_keypoints: int,
     # module's functions.
     from ..kernels import select_frontend
 
-    if topk_mode not in ("block", "sort"):
-        raise NotImplementedError(
-            f"topk_mode {topk_mode!r} is not ported (use 'block' or 'sort')")
+    if topk_mode not in ("sort", *BLOCK_MODES):
+        raise ValueError(f"unknown topk_mode {topk_mode!r} "
+                         "(expected 'block', 'sort', or 'approx')")
     h, w = scores.shape[-2:]
     if block_route(topk_mode, nms_radius, h, w, max_keypoints):
         return select_frontend.nms_select_blocks(scores, nms_radius, max_keypoints,

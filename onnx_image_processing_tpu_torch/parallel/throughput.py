@@ -19,9 +19,12 @@ still reads it is overwritten (each step allocates its own, and the
 caller's arrays keep them alive).
 
 Results and their order are those of the sequential loop; only the wall
-clock changes. The JAX package's ``vmap_pairs`` and ``chunk_batch`` work
-around XLA-TPU layouts and have no counterpart here: the port's matchers
-take B stacked pairs (``models.build_batched``).
+clock changes. :func:`vmap_pairs` and :func:`chunk_batch` keep the JAX
+package's contracts (a single-pair matcher over B pairs; a batched function
+in sequential sub-batches) so that code written against them runs here.
+In JAX they route around XLA-TPU layout cliffs; here they are loops of
+eager calls, and the port's matchers take B stacked pairs themselves
+(``models.build_batched``).
 """
 
 from __future__ import annotations
@@ -33,14 +36,59 @@ import numpy as np
 import torch
 
 
-def _tree_map(fn, tree):
+def _tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of ``tree`` (and the matching leaves of the
+    trees in ``rest``, of the same structure)."""
     if isinstance(tree, tuple):
-        return tuple(_tree_map(fn, x) for x in tree)
+        return tuple(_tree_map(fn, *xs) for xs in zip(tree, *rest))
     if isinstance(tree, list):
-        return [_tree_map(fn, x) for x in tree]
+        return [_tree_map(fn, *xs) for xs in zip(tree, *rest)]
     if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
+        return {k: _tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
+def _first_leaf(tree):
+    while isinstance(tree, (tuple, list, dict)):
+        tree = next(iter(tree.values() if isinstance(tree, dict) else tree))
+    return tree
+
+
+def vmap_pairs(fn: Callable, chunk: int | None = None) -> Callable:
+    """A single-pair matcher ``fn`` of (1, 1, H, W) images over B pairs.
+
+    Returns a callable (img1 (B, 1, H, W), img2 (B, 1, H, W)) -> ``fn``'s
+    output structure with each leaf's batch-1 axis stacked to B: what the
+    stacked-batch call returns. Pair ``i`` is ``fn(img1[i:i+1],
+    img2[i:i+1])``; with ``chunk``, the pairs go in sequential sub-batches
+    of ``chunk`` (:func:`chunk_batch`), which gives the same result.
+    """
+    def batched(img1, img2):
+        outs = [fn(img1[i:i + 1], img2[i:i + 1]) for i in range(img1.shape[0])]
+        return _tree_map(lambda *xs: torch.cat(xs, dim=0), *outs)
+
+    return batched if chunk is None else chunk_batch(batched, chunk)
+
+
+def chunk_batch(fn: Callable, chunk: int = 8) -> Callable:
+    """A batch-parallel ``fn`` over (B, ...) pytrees in sequential
+    sub-batches of ``chunk``, the last one the remainder (B % chunk); the
+    outputs are concatenated along the batch axis. B <= ``chunk`` passes
+    straight through. Every leaf of the arguments and outputs carries the
+    same leading batch axis (close over an unbatched extra such as
+    ``k_inv``).
+    """
+    if chunk < 1:
+        raise ValueError(f"chunk must be >= 1, got {chunk}")
+
+    def chunked(*args):
+        b = _first_leaf(args).shape[0]
+        if b <= chunk:
+            return fn(*args)
+        parts = [fn(*_tree_map(lambda x: x[i:i + chunk], args)) for i in range(0, b, chunk)]
+        return _tree_map(lambda *xs: torch.cat(xs, dim=0), *parts)
+
+    return chunked
 
 
 def _fetch(out):

@@ -205,5 +205,7 @@ def test_akaze_modules_check_devices(gray_image):
     matcher = models.build("akaze_sparse_bad_sinkhorn", device="cpu")
     with pytest.raises(ValueError):
         matcher(torch.from_numpy(gray_image), torch.from_numpy(gray_image).to("meta"))
-    with pytest.raises(NotImplementedError):
-        models.build("akaze_sparse_bad_sinkhorn", topk_mode="approx", device="cpu")
+    approx = models.build("akaze_sparse_bad_sinkhorn", topk_mode="approx", device="cpu")
+    assert approx.cfg.topk_mode == "approx"
+    with pytest.raises(ValueError):
+        approx(torch.from_numpy(gray_image), torch.from_numpy(gray_image).to("meta"))

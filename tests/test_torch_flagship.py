@@ -61,6 +61,10 @@ def _common_index(a, b):
 
 
 def test_flagship_keypoints_and_p_match_jax(jax_out, port_out):
+    _assert_matches_jax(port_out, jax_out)
+
+
+def _assert_matches_jax(port_out, jax_out):
     k1j, k2j, pj = jax_out
     k1t, k2t, pt = port_out
     assert pt.shape == pj.shape == (1, K + 1, K + 1)
@@ -148,11 +152,16 @@ def test_inputs_on_another_device_raise(gray_image_pair):
 
 
 def test_unported_options_raise(gray_image_pair):
-    """Approximate top-k stays unported; the L1 cost, the essential
-    pipelines, the dense family and the auxiliary heads (FAST, DoG, voxel
-    downsampling) build and run; an unknown name raises."""
-    with pytest.raises(NotImplementedError):
-        models.build(NAME, topk_mode="approx", device="cpu")
+    """The flagship with ``topk_mode="approx"`` matches JAX's (which off a
+    TPU selects exactly, as block) under the tolerances above; the L1 cost,
+    the essential pipelines, the dense family and the auxiliary heads (FAST,
+    DoG, voxel downsampling) build and run; an unknown name raises."""
+    img1, img2 = gray_image_pair
+    j_fn = jax_models.build(NAME, max_keypoints=K, topk_mode="approx")
+    fn = models.build(NAME, max_keypoints=K, topk_mode="approx", device="cpu")
+    _assert_matches_jax(
+        tuple(o.numpy() for o in fn(torch.from_numpy(img1), torch.from_numpy(img2))),
+        tuple(np.asarray(o) for o in j_fn(jnp.asarray(img1), jnp.asarray(img2))))
     for name in ("fast", "dog", "dog_with_score", "voxel_downsampling"):
         assert models.build(name, device="cpu").device == torch.device("cpu")
     with pytest.raises(KeyError, match="unknown pipeline"):

@@ -104,8 +104,21 @@ def test_select_topk_keypoints_matches_jax(nms_radius):
 
 
 def test_nms_select_topk_rejects_unported_mode():
-    with pytest.raises(NotImplementedError):
-        nms_select_topk(torch.zeros((1, 32, 32)), 8, topk_mode="approx")
+    """``topk_mode="approx"`` equals JAX's approximate selection off a TPU
+    (where ``lax.approx_max_k`` is the exact top-k) bit for bit, on the
+    input of ``tests/test_detector_parity.py::test_topk_approx_mode_plumbing``;
+    an unknown mode raises."""
+    s = np.random.default_rng(11).uniform(0, 10, (2, 120, 161)).astype(np.float32)
+    k_j, s_j = j_select(jnp.asarray(s), j_nms_maxpool(jnp.asarray(s), 5), 100, 0.0, 4,
+                        nms_radius=5, approx=True)
+    k_t, s_t = nms_select_topk(torch.from_numpy(s), 100, 0.0, 4, nms_radius=5,
+                               topk_mode="approx")
+    np.testing.assert_array_equal(k_t.numpy(), np.asarray(k_j))
+    np.testing.assert_array_equal(s_t.numpy(), np.asarray(s_j))
+    k_b, s_b = nms_select_topk(torch.from_numpy(s), 100, 0.0, 4, nms_radius=5)
+    assert torch.equal(k_t, k_b) and torch.equal(s_t, s_b)
+    with pytest.raises(ValueError, match="unknown topk_mode"):
+        nms_select_topk(torch.zeros((1, 32, 32)), 8, topk_mode="exact")
 
 
 def _jax_block_topk(s, k, thr, margin, r):
@@ -153,3 +166,20 @@ def test_nms_select_topk_block_mode_is_the_fused_select():
     got = nms_select_topk(torch.from_numpy(s), 100, 0.01, 8, nms_radius=3)
     for g, e in zip(got, want):
         assert torch.equal(g, e)
+
+
+@pytest.mark.parametrize("name,kw", [
+    ("shi_tomasi_angle_sparse_bad_sinkhorn", dict(fused_detect=True)),
+    ("akaze_sparse_bad_sinkhorn", {})])
+def test_approx_routes_select_as_block(name, kw):
+    """The fused detect's and AKAZE's selection take ``approx`` as ``block``:
+    the pipelines' outputs are equal bit for bit."""
+    from onnx_image_processing_tpu_torch import models
+
+    rng = np.random.default_rng(5)
+    img1 = torch.from_numpy(rng.uniform(0, 255, (1, 1, 96, 128)).astype(np.float32))
+    img2 = torch.roll(img1, 5, dims=3)
+    outs = [models.build(name, max_keypoints=32, num_pairs=256, topk_mode=mode,
+                         device="cpu", **kw)(img1, img2) for mode in ("block", "approx")]
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)

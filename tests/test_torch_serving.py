@@ -179,3 +179,72 @@ def test_stream_map_chunked_matches_jax(pairs):
                                    atol=JAX_P_ATOL, rtol=0)
     assert sum(np.array_equal(g[0], w[0]) for g, w in zip(got, want)) >= len(pairs) - 1
     assert got[0][2].dtype == want[0][2].dtype == np.float32
+
+
+def _compose_pair(seed, b, h=96, w=128):
+    """``tests/test_parallel.py``'s inputs: B uniform images and their 5-px roll."""
+    img = np.random.default_rng(seed).uniform(0, 255, (b, 1, h, w)).astype(np.float32)
+    return img, np.roll(img, 5, axis=3).copy()
+
+
+COMPOSE = dict(max_keypoints=32, num_pairs=256)
+
+
+@pytest.mark.parametrize("chunk", [None, 2])
+def test_vmap_pairs_matches_stacked_and_jax(chunk):
+    """``vmap_pairs`` of the single-pair flagship over B = 3 pairs (with
+    chunk 2, a remainder of 1) gives the stacked-batch call's shapes,
+    keypoints and P (the JAX test's atol), and JAX's ``vmap_pairs``
+    result under the flagship tolerances."""
+    from onnx_image_processing_tpu.parallel import vmap_pairs as j_vmap_pairs
+    from onnx_image_processing_tpu_torch.parallel import vmap_pairs
+
+    img1, img2 = _compose_pair(7, 3)
+    fn = models.build(NAME, device="cpu", **COMPOSE)
+    stacked = fn(torch.from_numpy(img1), torch.from_numpy(img2))
+    got = vmap_pairs(fn, chunk=chunk)(torch.from_numpy(img1), torch.from_numpy(img2))
+    assert [t.shape for t in got] == [t.shape for t in stacked]
+    assert torch.equal(got[0], stacked[0]) and torch.equal(got[1], stacked[1])
+    torch.testing.assert_close(got[2], stacked[2], atol=P_ATOL, rtol=0)
+    j_fn = jax_models.build(NAME, use_pallas=False, **COMPOSE)
+    want = j_vmap_pairs(j_fn, chunk=chunk)(jax.numpy.asarray(img1), jax.numpy.asarray(img2))
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+    np.testing.assert_allclose(got[2].numpy(), np.asarray(want[2]), atol=JAX_P_ATOL, rtol=0)
+
+
+def test_chunk_batch_matches_unchunked_and_jax():
+    """``chunk_batch`` of the streaming split's extract and match at B = 5,
+    chunk 2 (a remainder sub-batch of 1) equals the unchunked calls bit for
+    bit; B <= chunk passes straight through; the chunked match gives JAX's
+    ``chunk_batch`` result under the flagship tolerances."""
+    from onnx_image_processing_tpu.parallel import chunk_batch as j_chunk_batch
+    from onnx_image_processing_tpu_torch.parallel import chunk_batch
+
+    imgs, prev = _compose_pair(9, 5)
+    extract, match = models.build_streaming(NAME, device="cpu", **COMPOSE)
+    f_prev, f_new = extract(torch.from_numpy(prev)), extract(torch.from_numpy(imgs))
+    ref = match(f_prev, f_new)
+    ex_c, ma_c = chunk_batch(extract, chunk=2), chunk_batch(match, chunk=2)
+    fc_prev, fc_new = ex_c(torch.from_numpy(prev)), ex_c(torch.from_numpy(imgs))
+    for a, b in zip(fc_prev, f_prev):
+        assert torch.equal(a, b)
+    out = ma_c(fc_prev, fc_new)
+    assert len(out) == len(ref) and all(torch.equal(a, b) for a, b in zip(out, ref))
+    small = chunk_batch(match, chunk=8)(f_prev, f_new)
+    assert all(torch.equal(a, b) for a, b in zip(small, ref))
+
+    j_extract, j_match = jax_models.build_streaming(NAME, use_pallas=False, **COMPOSE)
+    j_ex, j_ma = j_chunk_batch(j_extract, chunk=2), j_chunk_batch(j_match, chunk=2)
+    want = j_ma(j_ex(jax.numpy.asarray(prev)), j_ex(jax.numpy.asarray(imgs)))
+    assert len(want) == len(out)
+    np.testing.assert_array_equal(out[0].numpy(), np.asarray(want[0]))
+    np.testing.assert_array_equal(out[1].numpy(), np.asarray(want[1]))
+    np.testing.assert_allclose(out[2].numpy(), np.asarray(want[2]), atol=JAX_P_ATOL, rtol=0)
+
+
+def test_chunk_batch_rejects_chunk_below_one():
+    from onnx_image_processing_tpu_torch.parallel import chunk_batch
+
+    with pytest.raises(ValueError, match="chunk"):
+        chunk_batch(lambda x: x, chunk=0)
