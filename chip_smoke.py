@@ -26,7 +26,11 @@ Phases (any failed check raises; nothing falls back to the CPU):
    Sinkhorn kernel at 513 and 1025, the sampler
    also in the dense matcher's bilinear mode, the select kernel also as the
    flagship's whole ``ops.nms_select_topk``, the detect frontend also as
-   ``detect_select``, the ladder also at B=1. The sampler's stage ablation at the
+   ``detect_select``, the ladder also at B=1. The essential solve's three
+   kernels at the VO path's inputs (VO frames 0-1: every 9x9 normal matrix
+   and 3x3 E the AKAZE and RANSAC essential pipelines solve, and the RANSAC
+   path's 256 minimal samples), with the library call beside each
+   (``torch.linalg.eigh`` in float64, ``torch.linalg.svd``). The sampler's stage ablation at the
    flagship's inputs (full = the sampler kernel = its plain version, bit for
    bit; no box sums = its plain definition, bit for bit; no load finite; no
    store leaves the buffer untouched), and the sampler in bilinear mode at
@@ -57,7 +61,9 @@ Phases (any failed check raises; nothing falls back to the CPU):
    truth (R = I, t along +-x): per-frame rotation and t-direction errors,
    medians and failures side by side; the card's median rotation error at
    most the CPU's + 0.3 deg, its failures at most the CPU's + 1, the RANSAC
-   flagship's inside absolute bars.
+   flagship's inside absolute bars. No host sync of a frame may lie in the
+   essential solve (``geometry/essential_matrix.py``,
+   ``kernels/essential_solve.py``).
 8. The dense family at 480x640: the dense matcher
    ``shi_tomasi_bad_sinkhorn`` at its registry defaults (1024 keypoints, 512
    pairs sampled bilinearly, a 1025x1025 Sinkhorn) as phase 3, and its
@@ -85,7 +91,8 @@ Phases (any failed check raises; nothing falls back to the CPU):
    and the device launches per chunk.
 11. Export on the card (``torch.export``): the flagship, the flagship with
    ``fused_detect=True`` and the AKAZE matcher (``_extraction`` forms,
-   480x640, 512 keypoints, 256 matches) exported on CUDA, saved to a
+   480x640, 512 keypoints, 256 matches) and the AKAZE essential matcher
+   (registry defaults, BASELINE config #5) exported on CUDA, saved to a
    temporary directory and loaded back: the graph holds the kernels' op
    nodes, the loaded module's outputs equal the eager module's bit for bit
    on the pair, and one loaded call launches each kernel as often as one
@@ -104,20 +111,24 @@ Phases (any failed check raises; nothing falls back to the CPU):
    fused flagship, AKAZE, the dense, unoriented and with-filters matchers
    (``_extraction`` forms, 256 matches) on the pair, and the heads
    ``shi_tomasi``, ``fast``, ``dog_with_score``, ``akaze`` on its first
-   image and ``voxel_downsampling`` on 8,192 points: a CUDA graph of one
+   image, ``voxel_downsampling`` on 8,192 points, and the three essential
+   names (the flagship essential matcher, also with the VO path's 256
+   RANSAC hypotheses, and the AKAZE one on the pair and ``k_inv``; the
+   estimator on its registry inputs): a CUDA graph of one
    call, replayed 5 times on the path's inputs and a second input in turn
-   (the texture pair; the points' axes mirrored), equals the eager call on
+   (the texture pair; the points' axes mirrored; the estimator's P
+   mirrored), equals the eager call on
    the same inputs bit for bit; then
    ``chain_times`` at n = 30 (two graphs of 30 and 90 chained calls) and
    the host loop of ``run_benchmark``, with the graph's nodes, the capture
-   seconds and the peak memory, one JSON line per path. The essential
-   matcher must refuse the chain (``ValueError``) before any capture.
+   seconds and the peak memory, one JSON line per path.
 
 The last two lines are a JSON object of per-kernel results (each with its
 launches on the paths, launches per call of its path, error against its
 plain version, ms, plain ms, device ms and device launches per call, the
-card's bound for the same work and what bounds it, and ``library_ms``:
-null, no single PyTorch call computes any of them) and
+card's bound for the same work and what bounds it, and ``library_ms``: the
+essential solve's ``torch.linalg.eigh`` and ``torch.linalg.svd``, null for
+the rest, which no single PyTorch call computes) and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -204,9 +215,29 @@ SERVE_REPS = 5          # timed streams per (chunk, depth)
 MESH_B = 4
 SOAK_SEED, SOAK_ITERS = 0, 120
 SOAK_FAMILIES = ("flagship", "akaze", "essential", "ties", "sinkhorn", "sinkhorn")
-# Peak rates of one H100 SXM: HBM3 bandwidth and dense FP32 throughput.
+# Peak rates of one H100 SXM: HBM3 bandwidth, dense FP32 throughput, and
+# FP64 outside the tensor cores (NVIDIA's data sheet; the Jacobi kernels
+# do no matrix products).
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+F64_OPS_PER_S = 34e12
+# The essential solve (phase 2), kernel vs plain version on the VO path's
+# inputs: the minimum eigenvector up to sign where the two smallest
+# eigenvalues part by >= 1e-6 of the largest (else by its residual |Mv|);
+# the projection up to sign. The hypotheses: a float32 solve of a minimal
+# sample moves far from the float64 one (the plain version on VO frames
+# 0-1, NVIDIA H100: median 1.9e-2, max 0.36, unit norm, up to sign), so two
+# float32 solves part by as much; the kernel's median distance from the
+# float64 solve is held to HYPOTHESIS_MEDIAN_RATIO x the plain version's
+# (the rule of tests/test_torch_geometry.py _as_accurate_as_jax), and the
+# best MSAC score of its hypotheses to no less than (1 - MSAC_RTOL) x the
+# plain version's best.
+EIGVEC_ATOL, EIGVEC_GAP = 1e-6, 1e-6
+PROJECT_ATOL = 1e-5
+HYPOTHESIS_MEDIAN_RATIO = 4.0
+MSAC_RTOL = 1e-3
+ESSENTIAL_KERNELS = ("min_eigvec9", "project_essential", "essential_hypotheses")
+RANSAC_KW = dict(essential_ransac_hypotheses=256, essential_irls_iters=2)   # the VO path's
 
 
 def check(ok: bool, what: str) -> None:
@@ -318,7 +349,7 @@ def run_path(label, name, overrides, g_pair, c_pair, expect_zero=(), self_min=0)
     out = extraction(*g_pair)
     torch.cuda.synchronize()
     counts = launch_counts()
-    check_counts(label, counts, set(counts) - {*expect_zero, ABLATE})
+    check_counts(label, counts, set(counts) - {*expect_zero, *ESSENTIAL_KERNELS, ABLATE})
     mk1, mk2, ms, mv, *_ = (t.cpu().numpy() for t in out)
     check(mk1.shape == (1, MAX_MATCHES, 2) and ms.shape == (1, MAX_MATCHES),
           f"[{label}] extraction output shapes {mk1.shape} {ms.shape}")
@@ -809,7 +840,8 @@ def run_serving(dev, paths: dict, results: dict) -> None:
     torch.cuda.synchronize()
     paths["serving"] = launch_counts()
     check_counts("serving", paths["serving"],
-                 set(paths["serving"]) - {"detect_frontend", "akaze_ladder", ABLATE})
+                 set(paths["serving"]) - {"detect_frontend", "akaze_ladder", ABLATE,
+                                          *ESSENTIAL_KERNELS})
 
     a4, b4 = (torch.from_numpy(np.concatenate([p[i] for p in pairs[:4]])).to(dev) for i in (0, 1))
     reset_launch_counts()
@@ -865,12 +897,19 @@ def run_serving(dev, paths: dict, results: dict) -> None:
 # Phase 11: the exported paths, each path's kernels (launch counters) and
 # the op nodes its graph must hold.
 EXPORT_PATHS = (
-    ("flagship", {}, ("select_frontend", "sparse_sampler", "sinkhorn"),
+    ("flagship", FLAGSHIP + "_extraction", {}, ("select_frontend", "sparse_sampler", "sinkhorn"),
      ("nms_select_blocks", "box_sample", "sinkhorn_core")),
-    ("fused", {"fused_detect": True}, ("detect_frontend", "sparse_sampler", "sinkhorn"),
+    ("fused", FLAGSHIP + "_extraction", {"fused_detect": True},
+     ("detect_frontend", "sparse_sampler", "sinkhorn"),
      ("detect_select", "box_sample", "sinkhorn_core")),
-    ("AKAZE", {}, ("akaze_ladder", "select_frontend", "sparse_sampler", "sinkhorn"),
+    ("AKAZE", AKAZE + "_extraction", {},
+     ("akaze_ladder", "select_frontend", "sparse_sampler", "sinkhorn"),
      ("akaze_ladder", "nms_select_blocks", "box_sample", "sinkhorn_core")),
+    ("AKAZE essential", AKAZE + "_essential_matrix", None,
+     ("akaze_ladder", "select_frontend", "sparse_sampler", "sinkhorn", "min_eigvec9",
+      "project_essential"),
+     ("akaze_ladder", "nms_select_blocks", "box_sample", "sinkhorn_core", "min_eigvec9",
+      "project_essential")),
 )
 SMALL_H, SMALL_W = 240, 320   # the dynamic artifact's second shape
 
@@ -884,15 +923,17 @@ def outputs_equal(a, b) -> bool:
 
 
 def run_export(g_pair, paths: dict) -> None:
-    """Phase 11: the three paths exported on the card, saved, loaded and
-    held to their eager modules; the flagship's dynamic artifact at two
-    shapes and its streaming pair. Adds each loaded call's launch counts
-    to ``paths``."""
+    """Phase 11: the four paths exported on the card, saved, loaded and
+    held to their eager modules (the AKAZE essential matcher at its
+    registry defaults, with ``k_inv``); the flagship's dynamic artifact at
+    two shapes and its streaming pair. Adds each loaded call's launch
+    counts to ``paths``."""
     import tempfile
 
     import torch
     from onnx_image_processing_tpu_torch import models
     from onnx_image_processing_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from onnx_image_processing_tpu_torch.models.registry import k_inv_for
 
     dev = g_pair[0].device
     kw = dict(max_keypoints=MAX_KEYPOINTS, max_matches=MAX_MATCHES)
@@ -904,11 +945,15 @@ def run_export(g_pair, paths: dict) -> None:
         return out, launch_counts()
 
     with tempfile.TemporaryDirectory() as tmp:
-        for label, extra, kernels, op_names in EXPORT_PATHS:
-            name = (AKAZE if label == "AKAZE" else FLAGSHIP) + "_extraction"
-            eager = models.build(name, device=dev, **kw, **extra)
+        for label, name, extra, kernels, op_names in EXPORT_PATHS:
+            # extra None: the registry defaults.
+            over = {} if extra is None else dict(kw, **extra)
+            args = g_pair
+            if models.get(name).takes_k_inv:
+                args = (*g_pair, torch.from_numpy(k_inv_for(H, W)).to(dev))
+            eager = models.build(name, device=dev, **over)
             t0 = time.perf_counter()
-            exported = models.export_model(name, H, W, device=dev, **kw, **extra)
+            exported = models.export_model(name, H, W, device=dev, **over)
             t_export = time.perf_counter() - t0
             path = models.save_exported(exported, models.artifact_path(tmp, label, dev))
             t0 = time.perf_counter()
@@ -921,17 +966,17 @@ def run_export(g_pair, paths: dict) -> None:
                   f"{sorted(in_graph)}")
             check(set(op_names) <= in_graph, f"[export {label}] the graph lacks op nodes "
                                              f"{sorted(set(op_names) - in_graph)}")
-            want, c_eager = counted(eager, g_pair)
-            got, c_loaded = counted(loaded, g_pair)
+            want, c_eager = counted(eager, args)
+            got, c_loaded = counted(loaded, args)
             check_counts(f"export {label}", c_loaded, kernels)
             print(f"[export {label}] launches of one eager call {json.dumps(c_eager, sort_keys=True)}")
             check(c_loaded == c_eager, f"[export {label}] the loaded call launched {c_loaded}, "
                                        f"the eager call {c_eager}")
-            same = outputs_equal(got, want)
+            same = outputs_equal(leaves(got), leaves(want))
             print(f"[export {label}] loaded vs eager on the pair: bit-identical {same}")
             check(same, f"[export {label}] the loaded artifact's outputs differ from eager")
             paths[f"export {label}"] = c_loaded
-            ms_e, ms_l = median_ms(eager, g_pair), median_ms(loaded, g_pair)
+            ms_e, ms_l = median_ms(eager, args), median_ms(loaded, args)
             print(f"[export {label}] ms per pair: eager {ms_e:.3f}, loaded artifact {ms_l:.3f} "
                   f"(median of 20 after 5 warm-ups, host clock around synchronized calls)")
 
@@ -1056,6 +1101,16 @@ CHAIN_PATHS = (
     ("dog_with_score", "dog_with_score", {}, ()),
     ("akaze head", "akaze", {}, ("akaze_ladder",)),
     ("voxel_downsampling", "voxel_downsampling", {}, ()),
+    ("flagship essential", FLAGSHIP + "_essential_matrix", dict(max_keypoints=MAX_KEYPOINTS),
+     ("select_frontend", "sparse_sampler", "sinkhorn", "min_eigvec9", "project_essential")),
+    ("flagship essential RANSAC", FLAGSHIP + "_essential_matrix",
+     dict(max_keypoints=MAX_KEYPOINTS, **RANSAC_KW),
+     ("select_frontend", "sparse_sampler", "sinkhorn", *ESSENTIAL_KERNELS)),
+    ("AKAZE essential", AKAZE + "_essential_matrix", {},
+     ("akaze_ladder", "select_frontend", "sparse_sampler", "sinkhorn", "min_eigvec9",
+      "project_essential")),
+    ("essential estimator", "essential_matrix_estimator", {},
+     ("min_eigvec9", "project_essential")),
 )
 
 
@@ -1082,9 +1137,11 @@ def run_chain(g1, g2, paths: dict) -> None:
     from onnx_image_processing_tpu_torch import models
     from onnx_image_processing_tpu_torch.cli import common
     from onnx_image_processing_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from onnx_image_processing_tpu_torch.models.registry import k_inv_for
 
     dev = g1.device
     t1, t2 = (torch.from_numpy(a).to(dev) for a in texture_pair())
+    k_inv = torch.from_numpy(k_inv_for(H, W)).to(dev)
     with torch.inference_mode():
         for label, name, kw, kernels in CHAIN_PATHS:
             spec = models.get(name)
@@ -1092,12 +1149,14 @@ def run_chain(g1, g2, paths: dict) -> None:
             fn = models.build(name, device=dev, **extra, **kw)
             if spec.make_args is not None:
                 args = models.arg_specs(spec, fn.cfg, H, W, device=dev)
-                other = tuple(a.flip(-1) if a.dim() else a for a in args)
+                other = (args[0].flip(-1), *args[1:])
             else:
                 args, other = (g1, g2)[:spec.n_images], (t1, t2)[:spec.n_images]
+                if spec.takes_k_inv:
+                    args, other = (*args, k_inv), (*other, k_inv)
             # The graph reads its inputs from `static`. Replays alternate
             # between the path's inputs and a second input (the texture pair;
-            # the points' axes mirrored), each held to eager on the same
+            # the points' axes mirrored; P mirrored), each held to eager on the same
             # inputs: a launch that escaped the graph would leave the other
             # input's outputs behind.
             inputs = (args, other)
@@ -1131,20 +1190,13 @@ def run_chain(g1, g2, paths: dict) -> None:
                 "chain_n": CHAIN_N, "t_n_s": chain.short_s, "t_3n_s": chain.long_s,
                 "host_ms_per_frame": host_ms, "capture_s": chain.capture_s,
                 "peak_mib": chain.peak_bytes / 2 ** 20}))
-        ess = models.build(AKAZE + "_essential_matrix", device=dev)
-        spec = models.get(AKAZE + "_essential_matrix")
-        try:
-            common.benchmark_chain(ess, models.arg_specs(spec, ess.cfg, H, W, device=dev))
-        except ValueError as e:
-            print(f"[chain essential] refused before capture: {e}")
-        else:
-            check(False, "[chain essential] the essential matcher's chain did not raise")
 
 
-def bound(nbytes: float, ops: float) -> dict:
+def bound(nbytes: float, ops: float, ops_per_s: float = F32_OPS_PER_S) -> dict:
     """The least time the card could take: the larger of the bytes over the
-    memory rate and the operations over the float32 rate."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    memory rate and the operations over the rate of their type (float32
+    unless ``ops_per_s`` says otherwise)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ops_per_s
     t = max(t_bytes, t_ops)
     return {"bound_ms": t * 1e3, "bound_us": t * 1e6,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
@@ -1250,8 +1302,9 @@ def run_vo(label, name, overrides, frames_g, frames_c, k_inv, expect_zero, samps
     streaming vs the two-image module, E on the card vs on the CPU, E
     finite and rank 2, and the pooled median Sampson error of the valid
     matches under E; prints ms per frame, host syncs (and where each one is
-    made) and launches per frame.
-    Returns the launch counts summed over the frames."""
+    made) and launches per frame; no sync may be made in the essential
+    solve. Returns the launch counts summed over the frames and those of
+    the first frame."""
     import traceback
     import warnings
 
@@ -1410,7 +1463,9 @@ def run_vo(label, name, overrides, frames_g, frames_c, k_inv, expect_zero, samps
           f"frame {len(syncs)}")
     for site in sorted(set(syncs)):
         print(f"[{label}]   sync x{syncs.count(site)} at {site}")
-    return totals
+    in_solve = [x for x in syncs if x.startswith(("essential_matrix.py", "essential_solve.py"))]
+    check(not in_solve, f"[{label}] host syncs in the essential solve: {in_solve}")
+    return totals, per_frame[0]
 
 
 def akaze_gap(both, akaze, lad_args) -> None:
@@ -1463,6 +1518,216 @@ def akaze_gap(both, akaze, lad_args) -> None:
           f"{int(off.sum())} keypoints past 1e-5, {int((off & ~moved.any(-1)).sum())} of them "
           f"with no sample position moved; sampler kernel on the CPU's sampler inputs vs "
           f"the CPU plain version: max abs diff {(smp_g - smp_c).abs().max().item():.3e}")
+
+
+def essential_inputs(dev) -> dict:
+    """What the essential solve's kernels are given on VO frames 0-1 by the
+    AKAZE essential pipeline (registry defaults: one soft LS solve) and the
+    flagship essential pipeline with the VO path's RANSAC: the arguments of
+    every wrapper call (lists under the wrappers' names) and of the RANSAC
+    (``"ransac"``: weights, points, tau), as the main path gives them."""
+    import torch
+    from onnx_image_processing_tpu_torch import models
+    from onnx_image_processing_tpu_torch.geometry import essential_matrix
+    from onnx_image_processing_tpu_torch.kernels import essential_solve
+
+    frames = [torch.from_numpy(f).to(dev) for f in vo_sequence()[:2]]
+    k_inv = torch.from_numpy(vo_k_inv()).to(dev)
+    seen: dict[str, list] = {}
+    spied = [(essential_solve, n) for n in ESSENTIAL_KERNELS]
+    spied.append((essential_matrix, "essential_ransac_from_candidates"))
+    real = {n: getattr(mod, n) for mod, n in spied}
+
+    def spy(name):
+        def call(*args, **kw):
+            seen.setdefault(name, []).append(tuple(
+                a.clone() if isinstance(a, torch.Tensor) else a for a in args))
+            return real[name](*args, **kw)
+        return call
+
+    kw = dict(max_matches=VO_MAX_MATCHES, match_threshold=VO_MATCH_THRESHOLD)
+    try:
+        for mod, n in spied:
+            setattr(mod, n, spy(n))
+        for name, extra in ((AKAZE + "_essential_matrix", {}),
+                            (FLAGSHIP + "_essential_matrix", RANSAC_KW)):
+            models.build(name, device=dev, **kw, **extra)(*frames, k_inv)
+    finally:
+        for mod, n in spied:
+            setattr(mod, n, real[n])
+    seen["ransac"] = seen.pop("essential_ransac_from_candidates")
+    return seen
+
+
+def vo_k_inv() -> np.ndarray:
+    """K^-1 of the VO path (the VO CLI's default intrinsics: fx = 0.8 W)."""
+    fx = 0.8 * W
+    return np.linalg.inv(np.array([[fx, 0, W / 2], [0, fx, H / 2], [0, 0, 1]])).astype(np.float32)
+
+
+def jacobi_sweeps(a: np.ndarray) -> int:
+    """Sweeps that the Jacobi loops of ``csrc/essential_solve.cu`` make on
+    the symmetric matrix ``a`` (9x9: 9 rounds of 4 pairs; 3x3: 3 rounds of
+    one) before their exit test holds, emulated in float64 (for the
+    operation count of the bound)."""
+    n = len(a)
+    a = np.tril(np.asarray(a, np.float64)) + np.tril(np.asarray(a, np.float64), -1).T
+    if n == 9:
+        rounds = [[tuple(sorted(((r + k) % 9, (r - k) % 9))) for k in range(1, 5)]
+                  for r in range(9)]
+    else:
+        rounds = [[(0, 1)], [(0, 2)], [(1, 2)]]
+    tol = 1e-28 * (a ** 2).sum()
+    for sweep in range(20):
+        if not (np.triu(a, 1) ** 2).sum() > tol:
+            return sweep
+        for pairs in rounds:
+            j = np.eye(n)
+            for p, q in pairs:
+                if a[p, q] != 0.0:
+                    theta = (a[q, q] - a[p, p]) / (2 * a[p, q])
+                    t = np.sign(theta) / (abs(theta) + np.sqrt(1 + theta * theta)) if theta else 1.0
+                    c = 1 / np.sqrt(1 + t * t)
+                    j[p, p] = j[q, q] = c
+                    j[p, q], j[q, p] = t * c, -t * c
+            a = j.T @ a @ j
+            for p, q in pairs:
+                if j[p, q] != 0.0:
+                    a[p, q] = a[q, p] = 0.0
+    return 20
+
+
+def run_essential_kernels(dev, results: dict) -> None:
+    """Phase 2, the essential solve: each of its three kernels against its
+    plain version on the VO path's inputs (:func:`essential_inputs`), with
+    ms, device ms, the bound and the library call's ms."""
+    import torch
+    from onnx_image_processing_tpu_torch.geometry import sampson_error_matched
+    from onnx_image_processing_tpu_torch.kernels import essential_solve as es
+    from onnx_image_processing_tpu_torch.tools.ablate_sampler import cuda_ms, graph_ms
+    from onnx_image_processing_tpu_torch.tools.kernel_times import device_launches
+
+    def unit_diff(a, b):
+        a, b = (np.asarray(x, np.float64).reshape(len(x), -1) for x in (a, b))
+        a = a / np.linalg.norm(a, axis=1, keepdims=True)
+        b = b / np.linalg.norm(b, axis=1, keepdims=True)
+        return np.minimum(np.abs(a - b).max(1), np.abs(a + b).max(1))
+
+    seen = essential_inputs(dev)
+    print(f"[essential] VO frames 0-1: {len(seen['min_eigvec9'])} eigenvector solves, "
+          f"{len(seen['project_essential'])} projections, hypotheses "
+          f"{tuple(seen['essential_hypotheses'][0][0].shape)}")
+
+    # K1: every normal matrix of the two paths, one at a time as the path
+    # calls it, and all of them in one batch.
+    mats = torch.stack([m for (m,) in seen["min_eigvec9"]])
+    got = torch.cat([es.min_eigvec9(m[None]) for m in mats]).cpu().numpy()
+    batched = es.min_eigvec9(mats).cpu().numpy()
+    want = es.min_eigvec9_plain(mats).cpu().numpy()
+    m64 = mats.double().cpu().numpy()
+    lam = np.linalg.eigvalsh(m64)
+    apart = lam[:, 1] - lam[:, 0] >= EIGVEC_GAP * np.abs(lam).max(1)
+    err = unit_diff(got, want)
+    resid = [np.linalg.norm(np.einsum("bij,bj->bi", m64, v.astype(np.float64)), axis=1)
+             for v in (got, want)]
+    excess = (resid[0] - resid[1]) / np.linalg.norm(m64, axis=(1, 2))
+    print(f"min_eigvec9 {tuple(mats.shape)}: unit diff up to sign {err.max():.3e} where the "
+          f"gap >= {EIGVEC_GAP} ({int(apart.sum())} of {len(apart)}; max {EIGVEC_ATOL}); "
+          f"residual excess over the plain version / |M| {excess.max():.3e}; the batch equals "
+          f"the single calls {np.array_equal(batched, got)}; smallest relative gap "
+          f"{((lam[:, 1] - lam[:, 0]) / np.abs(lam).max(1)).min():.3e}")
+    check(bool((err[apart] <= EIGVEC_ATOL).all()), "min_eigvec9 differs from its plain version")
+    check(bool((excess[~apart] <= 1e-6).all()), "min_eigvec9 residual past the plain version's")
+    check(np.array_equal(batched, got), "min_eigvec9: the batch differs from the single calls")
+    m1 = mats[:1].contiguous()
+    m1_64 = m1.double()
+    sweeps = jacobi_sweeps(m64[0])
+    print(f"min_eigvec9: {sweeps} Jacobi sweeps on the LS path's matrix (float64 emulation)")
+    # Per sweep: 36 rotations, each an angle (~12 operations) and 6 per
+    # entry of the two rows of A and the two columns of A and V (54 each);
+    # the exit test's 72; the input's norm 162.
+    results["min_eigvec9"] = {
+        "max_abs_err": float(err[apart].max()) if apart.any() else 0.0,
+        "ms": cuda_ms(lambda: es.min_eigvec9(m1)),
+        "plain_ms": cuda_ms(lambda: es.min_eigvec9_plain(m1)),
+        "library_ms": cuda_ms(lambda: torch.linalg.eigh(m1_64)),
+        "device_ms": graph_ms(lambda: es.min_eigvec9(m1)),
+        "device_launches_per_call": device_launches(lambda: es.min_eigvec9(m1)),
+        "bound": bound(nbytes(m1) + 9 * 4, sweeps * (36 * (12 + 3 * 54) + 72) + 162 + 72,
+                       F64_OPS_PER_S),
+    }
+
+    # K2: every E the two paths project.
+    es_in = torch.stack([e for (e,) in seen["project_essential"]])
+    got = torch.cat([es.project_essential(e[None]) for e in es_in]).cpu().numpy()
+    want = es.project_essential_plain(es_in).cpu().numpy()
+    err = unit_diff(got, want)
+    sv = np.linalg.svd(got.astype(np.float64), compute_uv=False)
+    print(f"project_essential {tuple(es_in.shape)}: unit diff up to sign {err.max():.3e} "
+          f"(max {PROJECT_ATOL}); sigma3/sigma1 at most {(sv[:, 2] / sv[:, 0]).max():.3e}")
+    check(bool((err <= PROJECT_ATOL).all()), "project_essential differs from its plain version")
+    e1 = es_in[:1].contiguous()
+    e1_64 = e1[0].double().cpu().numpy()
+    sweeps = jacobi_sweeps(e1_64.T @ e1_64)
+    print(f"project_essential: {sweeps} Jacobi sweeps on the LS path's E^T E (float64 emulation)")
+    # E^T E (45), per sweep 3 rotations of ~66 and the exit test (6), the
+    # composition (~90).
+    results["project_essential"] = {
+        "max_abs_err": float(err.max()),
+        "ms": cuda_ms(lambda: es.project_essential(e1)),
+        "plain_ms": cuda_ms(lambda: es.project_essential_plain(e1)),
+        "library_ms": cuda_ms(lambda: torch.linalg.svd(e1)),
+        "device_ms": graph_ms(lambda: es.project_essential(e1)),
+        "device_launches_per_call": device_launches(lambda: es.project_essential(e1)),
+        "bound": bound(2 * nbytes(e1), 45 + 18 + sweeps * (3 * 66 + 6) + 90, F64_OPS_PER_S),
+    }
+
+    # K3: the RANSAC path's minimal samples, against the float64 solve and
+    # by the best MSAC score over the path's candidates.
+    w8, p1h, p2h = seen["essential_hypotheses"][0]
+    got_t = es.essential_hypotheses(w8, p1h, p2h)
+    want_t = es.essential_hypotheses_plain(w8, p1h, p2h)
+    f64_t = es.essential_hypotheses_plain(w8.double(), p1h.double(), p2h.double())
+    got, want, f64 = got_t.cpu().numpy(), want_t.cpu().numpy(), f64_t.cpu().numpy()
+    err, k_64, p_64 = unit_diff(got, want), unit_diff(got, f64), unit_diff(want, f64)
+    wc, pc1, pc2, tau = seen["ransac"][0][:4]
+    tau = torch.as_tensor(tau, dtype=torch.float32, device=dev)
+
+    def best(e_h):
+        msac = torch.clamp_min(1.0 - sampson_error_matched(e_h.float(), pc1, pc2)
+                               / (tau + 1e-30), 0.0)
+        return float((wc[None, :] * msac).sum(1).max())
+
+    b_k, b_p, b_64 = best(got_t), best(want_t), best(f64_t)
+    print(f"essential_hypotheses {tuple(got.shape)}: unit diff up to sign from the float64 "
+          f"solve, median / 90th percentile / max: kernel {np.median(k_64):.3e} / "
+          f"{np.percentile(k_64, 90):.3e} / {k_64.max():.3e}, plain {np.median(p_64):.3e} / "
+          f"{np.percentile(p_64, 90):.3e} / {p_64.max():.3e} (kernel median at most "
+          f"{HYPOTHESIS_MEDIAN_RATIO} x the plain's); kernel vs plain median {np.median(err):.3e}, "
+          f"max {err.max():.3e}, {int((err > 1e-2).sum())} of {len(err)} past 1e-2; best MSAC "
+          f"score kernel {b_k:.6f}, plain {b_p:.6f}, float64 {b_64:.6f} (kernel at least "
+          f"(1 - {MSAC_RTOL}) x plain)")
+    check(bool(np.isfinite(got).all()), "essential_hypotheses: non-finite hypotheses")
+    check(np.median(k_64) <= HYPOTHESIS_MEDIAN_RATIO * np.median(p_64),
+          "essential_hypotheses: less accurate than its plain version")
+    check(b_k >= (1 - MSAC_RTOL) * b_p, "essential_hypotheses: best MSAC score below the plain's")
+    s = w8.shape[0]
+    # Per hypothesis: the two normalisations (~90 each), the normal matrix
+    # (8 x (9 + 3 x 45)), the Cholesky factor (~330 with its roots and
+    # divides), three steps of two triangular solves and a norm (~190
+    # each), the denormalisation (~110).
+    results["essential_hypotheses"] = {
+        # The median: single hypotheses part as far as the plain version
+        # itself moves from float64 (printed above).
+        "max_abs_err": float(np.median(err)),
+        "ms": cuda_ms(lambda: es.essential_hypotheses(w8, p1h, p2h)),
+        "plain_ms": cuda_ms(lambda: es.essential_hypotheses_plain(w8, p1h, p2h)),
+        "device_ms": graph_ms(lambda: es.essential_hypotheses(w8, p1h, p2h)),
+        "device_launches_per_call": device_launches(
+            lambda: es.essential_hypotheses(w8, p1h, p2h)),
+        "bound": bound(nbytes(w8, p1h, p2h, got_t),
+                       s * (2 * 90 + 8 * (9 + 3 * 45) + 330 + 3 * 190 + 110)),
+    }
 
 
 def main() -> None:
@@ -1763,6 +2028,8 @@ def main() -> None:
                            + 8 * a.orientation_patch_size)),
     }
 
+    run_essential_kernels(dev, results)
+
     # ---- phase 3: the slice end to end ------------------------------------
     c1, c2 = torch.from_numpy(img1), torch.from_numpy(img2)
     flag_kw = dict(max_keypoints=MAX_KEYPOINTS)
@@ -1809,17 +2076,18 @@ def main() -> None:
     frames_g = [torch.from_numpy(f).to(dev) for f in frames]
     frames_c = [torch.from_numpy(f) for f in frames]
     fx = 0.8 * W  # the VO CLI's default intrinsics
-    k_inv = np.linalg.inv(np.array([[fx, 0, W / 2], [0, fx, H / 2], [0, 0, 1]])).astype(np.float32)
+    k_inv = vo_k_inv()
     sampson_bound = (SAMPSON_PX / fx) ** 2
     print(f"[VO] {len(frames)} frames {H}x{W}, x-motion {VO_STEP} px per frame times an "
           f"inverse depth in [0.6, 1.4]; fx {fx}; Sampson bound (2 px / fx)^2 = "
           f"{sampson_bound:.4e}")
-    paths["VO AKAZE"] = run_vo("VO AKAZE", AKAZE + "_essential_matrix", {}, frames_g, frames_c,
-                               k_inv, ("detect_frontend",),
-                               1.5 * JAX_AKAZE_SAMPSON_RATIO * sampson_bound, None)
-    paths["VO RANSAC"] = run_vo(
-        "VO RANSAC", FLAGSHIP + "_essential_matrix",
-        dict(essential_ransac_hypotheses=256, essential_irls_iters=2), frames_g, frames_c,
+    frame_counts = {}
+    paths["VO AKAZE"], frame_counts["VO AKAZE frame"] = run_vo(
+        "VO AKAZE", AKAZE + "_essential_matrix", {}, frames_g, frames_c, k_inv,
+        ("detect_frontend", "essential_hypotheses"),
+        1.5 * JAX_AKAZE_SAMPSON_RATIO * sampson_bound, None)
+    paths["VO RANSAC"], frame_counts["VO RANSAC frame"] = run_vo(
+        "VO RANSAC", FLAGSHIP + "_essential_matrix", RANSAC_KW, frames_g, frames_c,
         k_inv, unfused_zero, sampson_bound, POSE_BARS_RANSAC)
 
     # ---- phase 8: the dense family ---------------------------------------------
@@ -1879,10 +2147,19 @@ def main() -> None:
                "sinkhorn": ("sinkhorn.cu", "kernels/sinkhorn_kernel.py:111", "flagship"),
                "detect_frontend": ("detect_frontend.cu", "kernels/detect_frontend.py:300", "fused"),
                "akaze_ladder": ("akaze_ladder.cu", "kernels/akaze_ladder.py:161", "AKAZE"),
-               ABLATE: ("sparse_sampler.cu", None, "ablation")}
+               ABLATE: ("sparse_sampler.cu", None, "ablation"),
+               # No Pallas kernel: the JAX package's XLA eigh, svd and vmap.
+               "min_eigvec9": ("essential_solve.cu", "geometry/essential_matrix.py:101",
+                               "VO AKAZE frame"),
+               "project_essential": ("essential_solve.cu", "geometry/essential_matrix.py:222",
+                                     "VO AKAZE frame"),
+               "essential_hypotheses": ("essential_solve.cu",
+                                        "geometry/essential_matrix.py:499", "VO RANSAC frame")}
     # Launches: the sum over the path runs (each read right after its run);
-    # per call: the one counted call of the kernel's own path.
+    # per call: the one counted call of the kernel's own path (a VO frame for
+    # the essential solve).
     launches = {k: sum(c[k] for c in paths.values()) for k in sources}
+    per_call = {**paths, **frame_counts}
     kernels = []
     for name, (cu, tpu, path) in sources.items():
         r = results[name]
@@ -1892,12 +2169,12 @@ def main() -> None:
             "replaces": (f"onnx_image_processing_tpu/{tpu}" if tpu
                          else "benchmarks/ablate_sampler.py:167"),
             "launches": launches[name],
-            "launches_per_call": ablate_per_call if name == ABLATE else paths[path][name],
+            "launches_per_call": ablate_per_call if name == ABLATE else per_call[path][name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             **{k: v for k, v in r.items() if k.startswith(("device", "launches_per_chunk"))},
             **r["bound"],
             **{f"{k}_select": v for k, v in r.get("bound_select", {}).items()},
-            "library_ms": None})
+            "library_ms": r.get("library_ms")})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

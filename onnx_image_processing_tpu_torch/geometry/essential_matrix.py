@@ -1,15 +1,18 @@
 """Weighted 8-point essential-matrix estimation (port of
 ``onnx_image_processing_tpu/geometry/essential_matrix.py``).
 
-Plain PyTorch: the JAX package runs all of this outside any Pallas kernel.
-The functions take leading batch dimensions where JAX ``vmap``s them (the
-RANSAC hypotheses), so the batched and the single solve are one code path.
-Every product runs in full float32 (:func:`..core.full_fp32`), where JAX
-pins ``Precision.HIGHEST``: on the card a float32 product may otherwise run
-as TF32; the 9x9 eigenproblems are solved in float64 (:func:`min_eigvec9`).
-Nothing branches on a tensor's value, so the only host syncs are
-the ones ``torch.linalg.eigh`` and ``torch.linalg.svd`` make on a CUDA
-tensor to check their status.
+Plain PyTorch around three kernels: the JAX package runs all of this
+outside any Pallas kernel, and its ``eigh``, ``svd`` and hypothesis solve
+run on the card as ``kernels/essential_solve.py`` (:func:`min_eigvec9`,
+:func:`project_onto_essential_manifold`, the hypothesis stage of
+:func:`essential_ransac_from_candidates`; on a CPU tensor their plain
+versions). The functions take leading batch dimensions where JAX ``vmap``s
+them (the RANSAC hypotheses), so the batched and the single solve are one
+code path. Every product runs in full float32 (:func:`..core.full_fp32`),
+where JAX pins ``Precision.HIGHEST``: on the card a float32 product may
+otherwise run as TF32; the 9x9 eigenproblems are solved in float64
+(:func:`min_eigvec9`). Nothing branches on a tensor's value or reads one on
+the host, so a solve on the card can be captured in a CUDA graph.
 """
 
 from __future__ import annotations
@@ -87,12 +90,13 @@ def _chol_solve(a: torch.Tensor, rhs: torch.Tensor, jitter=0.0) -> torch.Tensor:
 def min_eigvec9(m: torch.Tensor, n_iter: int = 30, method: str = "eigh") -> torch.Tensor:
     """Minimum eigenvector of symmetric PSD (..., 9, 9) matrices.
 
-    ``"eigh"``: exact ``torch.linalg.eigh``, in float64 (a 9x9 matrix: the
-    cost is nothing). The normal matrix is ill-conditioned, and a float32
-    eigh on an H100 (cuSOLVER) returns a worse smallest eigenvector than
-    the CPU's: on ``chip_smoke.py`` phase 7's VO frames the RANSAC refit
-    with it tripled the median t-direction error of the recovered pose
-    (16.8 deg against the CPU's 5.7). ``"fast"``: shifted inverse
+    ``"eigh"``: exact, in float64 (:func:`..kernels.essential_solve.min_eigvec9`:
+    ``torch.linalg.eigh`` on a CPU tensor, a Jacobi kernel on a CUDA one).
+    The normal matrix is ill-conditioned, and a float32 eigh on an H100
+    (cuSOLVER) returned a worse smallest eigenvector than the CPU's: on
+    ``chip_smoke.py`` phase 7's VO frames the RANSAC refit with it tripled
+    the median t-direction error of the recovered pose (16.8 deg against
+    the CPU's 5.7). ``"fast"``: shifted inverse
     iteration with the unrolled 9x9 Cholesky solve (three steps).
     ``"power"``: the reference's trace-shifted power iteration, for parity
     tests only (it does not converge in ``n_iter`` steps on real data).
@@ -107,7 +111,9 @@ def min_eigvec9(m: torch.Tensor, n_iter: int = 30, method: str = "eigh") -> torc
             v = v / (_norm(v) + 1e-30)
         return v
     if method == "eigh":
-        return torch.linalg.eigh(m.double())[1][..., :, 0].to(m.dtype)
+        from ..kernels import essential_solve
+
+        return essential_solve.min_eigvec9(m)
     if method != "power":
         raise ValueError(f"min_eigvec9: unknown method {method!r} "
                          "(expected 'eigh', 'fast', or 'power')")
@@ -192,20 +198,18 @@ def project_onto_essential_manifold(e: torch.Tensor, n_iter: int = 10,
                                     method: str = "svd") -> torch.Tensor:
     """Project (..., 3, 3) matrices to singular values [s, s, 0].
 
-    ``"svd"``: exact ``torch.linalg.svd`` with the det-sign correction of U
-    and V. ``"exact3"``: closed form from the analytic eigenvalues of E^T E
-    (null direction from an adjugate column, v1 from the deflation product,
-    with a fallback axis when lam1 ~ lam2). ``"power"``: the reference's
+    ``"svd"``: exact (:func:`..kernels.essential_solve.project_essential`:
+    ``torch.linalg.svd`` with the det-sign correction of U and V on a CPU
+    tensor, a float64 kernel on a CUDA one). ``"exact3"``: closed form
+    from the analytic eigenvalues of E^T E (null direction from an
+    adjugate column, v1 from the deflation product, with a fallback axis
+    when lam1 ~ lam2). ``"power"``: the reference's
     power-iteration SVD, for parity tests.
     """
     if method == "svd":
-        u, s, vt = torch.linalg.svd(e)
-        v = vt.transpose(-1, -2)
-        # The sign of the determinant of an orthogonal matrix: _det3 gives
-        # the same sign as a general determinant.
-        u = _with_sign((u[..., :, 0], u[..., :, 1], u[..., :, 2]), torch.sign(_det3(u)))
-        v = _with_sign((v[..., :, 0], v[..., :, 1], v[..., :, 2]), torch.sign(_det3(v)))
-        return _compose(u, (s[..., 0] + s[..., 1]) / 2.0, v)
+        from ..kernels import essential_solve
+
+        return essential_solve.project_essential(e)
     if method == "exact3":
         b = _mm(e.transpose(-1, -2), e)
         lam1, lam2, lam3 = _eig3_sym(b)
@@ -375,7 +379,9 @@ def essential_ransac_from_candidates(weights: torch.Tensor, pts1_n: torch.Tensor
     1. Minimal samples by the Gumbel-top-k trick: ``top_8(log w + G)`` over
        JAX's own (hypotheses, N) Gumbel table (``_gumbel.py``), so the
        hypotheses are JAX's.
-    2. All hypotheses solved at once (``method="fast"``, no projection).
+    2. All hypotheses solved at once (``method="fast"``, no projection;
+       :func:`..kernels.essential_solve.essential_hypotheses`, one kernel
+       launch on the card).
     3. MSAC score ``sum_i w_i max(0, 1 - sampson_i / tau)`` per hypothesis.
     4. Weighted refit on the best hypothesis's inliers, then
        ``polish_iters`` re-gated Cauchy-IRLS steps whose gate is floored at
@@ -389,6 +395,8 @@ def essential_ransac_from_candidates(weights: torch.Tensor, pts1_n: torch.Tensor
     Returns:
         (3, 3) essential matrix.
     """
+    from ..kernels import essential_solve
+
     n = weights.shape[0]
     dev = weights.device
     tau = torch.as_tensor(tau, dtype=torch.float32, device=dev)
@@ -402,8 +410,7 @@ def essential_ransac_from_candidates(weights: torch.Tensor, pts1_n: torch.Tensor
     # Uniform weights over the sampled valid points; an invalid pick zeroes
     # out and its hypothesis degrades to a lower-rank fit, scored low.
     w8 = valid[idx].to(torch.float32)
-    e_h = essential_from_matched_points(w8, p1h, p2h, method="fast",
-                                        project=False)               # (S, 3, 3)
+    e_h = essential_solve.essential_hypotheses(w8, p1h, p2h)          # (S, 3, 3)
 
     s_all = sampson_error_matched(e_h, pts1_n, pts2_n)               # (S, N)
     msac = torch.clamp_min(1.0 - s_all / (tau + 1e-30), 0.0)

@@ -1,8 +1,10 @@
 """Hand-written CUDA kernels for Hopper + the one rule that routes to them.
 
 Every op with a kernel (select frontend, sparse sampler, Sinkhorn sweeps,
-detect frontend, AKAZE ladder) asks :func:`use_kernel` about the tensor it was given: a CUDA tensor goes to
-the kernel, a CPU tensor to the kernel's plain PyTorch version. This is the
+detect frontend, AKAZE ladder, and the essential solve's minimum
+eigenvector, projection and hypothesis solve) asks :func:`use_kernel`
+about the tensor it was given: a CUDA tensor goes to the kernel, a CPU
+tensor to the kernel's plain PyTorch version. This is the
 counterpart of the JAX package's ``use_pallas_default``, decided per tensor
 instead of by a global platform. There is no fallback: on a CUDA tensor a
 wrapper launches its kernel or raises.
@@ -13,7 +15,9 @@ show that its main path went through the kernels.
 Every kernel entry that a pipeline reaches is a ``torch.library`` custom op
 in the ``oip`` namespace (``oip::nms_block_reduce``,
 ``oip::nms_select_blocks``, ``oip::box_sample``, ``oip::sinkhorn_core``,
-``oip::detect_frontend``, ``oip::detect_select``, ``oip::akaze_ladder``):
+``oip::detect_frontend``, ``oip::detect_select``, ``oip::akaze_ladder``,
+``oip::min_eigvec9``, ``oip::project_essential``,
+``oip::essential_hypotheses``):
 the public wrapper calls its op, and the op runs the plain version or
 launches the kernel by :func:`use_kernel`. Each op has a fake
 implementation that gives its output shapes from the inputs' (symbolic)
@@ -56,8 +60,8 @@ _COUNTERS: dict[str, LaunchCounter] = {}
 
 def _register_all() -> None:
     """Import every kernel module, so each counter exists before it is read."""
-    from . import (akaze_ladder, detect_frontend, select_frontend,  # noqa: F401
-                   sinkhorn_kernel, sparse_sampler)
+    from . import (akaze_ladder, detect_frontend, essential_solve,  # noqa: F401
+                   select_frontend, sinkhorn_kernel, sparse_sampler)
 
 
 def launch_counts() -> dict[str, int]:

@@ -31,7 +31,7 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 SOURCES = ("runtime.cu", "select_frontend.cu", "sparse_sampler.cu",
-           "sinkhorn.cu", "detect_frontend.cu", "akaze_ladder.cu")
+           "sinkhorn.cu", "detect_frontend.cu", "akaze_ladder.cu", "essential_solve.cu")
 # sm_90a: Hopper's full instruction set. No --use_fast_math: the Sinkhorn
 # tolerance needs the full-precision expf/logf. -Xptxas -v reports each
 # kernel's registers, shared memory and spills into the build log.

@@ -31,7 +31,14 @@ Cases (one JSON line each, with the card's name and power limit):
   select (``models.shi_tomasi_family._fused_detect_select``: K=512, margin
   16, with the moments) on the pair and on its first image (a VO frame): one
   ``detect_select`` launch where the tree has it, else the detect frontend
-  followed by the plain premasked chain.
+  followed by the plain premasked chain;
+- ``min eigvec9 VO`` / ``project essential VO`` / ``essential hypotheses
+  S=256``: the essential solve's kernels on what the VO paths give them on
+  ``chip_smoke.py``'s VO frames 0-1 (``chip_smoke.essential_inputs``: the
+  AKAZE essential pipeline's 9x9 normal matrix and 3x3 E, the RANSAC
+  flagship's 256 minimal samples), with the library call beside the first
+  two (``eigh ... float64``, ``svd ...``); a tree without these kernels
+  skips them.
 
 ``device_ms``: a CUDA graph of 20 calls replayed between CUDA events, per
 call (``tools/ablate_sampler.py`` ``graph_ms``); ``ms``: CUDA events around
@@ -144,6 +151,27 @@ def detect_cases(dev: torch.device) -> list[tuple[str, object]]:
     ]
 
 
+def essential_cases(dev: torch.device) -> list[tuple[str, object, bool]]:
+    """The essential solve's kernels and library calls (flagged True) on
+    the VO inputs; none on a tree without the kernels."""
+    import chip_smoke
+    try:
+        from onnx_image_processing_tpu_torch.kernels import essential_solve as es
+    except ImportError:
+        return []
+    seen = chip_smoke.essential_inputs(dev)
+    (m,), (e,) = seen["min_eigvec9"][0], seen["project_essential"][0]
+    m, e, m64 = m[None].contiguous(), e[None].contiguous(), m[None].double()
+    hyp = seen["essential_hypotheses"][0]
+    return [
+        ("min eigvec9 VO", lambda: es.min_eigvec9(m), False),
+        ("eigh VO float64", lambda: torch.linalg.eigh(m64), True),
+        ("project essential VO", lambda: es.project_essential(e), False),
+        ("svd VO", lambda: torch.linalg.svd(e), True),
+        ("essential hypotheses S=256", lambda: es.essential_hypotheses(*hyp), False),
+    ]
+
+
 def timed(label: str, case: str, fn) -> dict:
     return {"tree": label, "case": case, "device_ms": graph_ms(fn), "ms": cuda_ms(fn),
             "launches": device_launches(fn)}
@@ -177,6 +205,10 @@ def run(label: str) -> list[dict]:
     lines.append({"tree": label, "case": "oriented dense map", "ms": float(np.median(times))})
     for case, fn in select_and_ladder_cases(dev) + detect_cases(dev):
         lines.append(timed(label, case, fn))
+    for case, fn, library in essential_cases(dev):
+        # cuSOLVER's eigh and svd read a status on the host: no CUDA graph.
+        lines.append({"tree": label, "case": case, "ms": cuda_ms(fn),
+                      "launches": device_launches(fn)} if library else timed(label, case, fn))
     return lines
 
 

@@ -21,7 +21,11 @@ traced with ``torch.profiler`` over 10 calls. Each traced call is one ``call`` r
 that ends in a synchronize, so the range spans the call's device work. The
 busy share is the union of device intervals (kernels and copies) inside
 those ranges over the ranges' summed length: device time and wall time come
-from the one traced window. The paths run in order, then in reverse order,
+from the one traced window. ``host_syncs_per_call`` counts the synchronizing
+CUDA calls of one call (PyTorch's sync debug mode warns at each): a VO
+frame's host copy of its outputs, and nothing in the essential solve, whose
+``eigh``, ``svd`` and hypothesis solve are kernels that read nothing on the
+host. The paths run in order, then in reverse order,
 so a drift of the host shows as a difference between the two passes. One
 JSON line per path and pass.
 """
@@ -64,6 +68,21 @@ def _union_within(intervals, windows) -> float:
     return total
 
 
+def host_syncs(step) -> int:
+    """Synchronizing CUDA calls made by one call of ``step``."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            step()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return sum("synchronizing CUDA operation" in str(w.message) for w in caught)
+
+
 def profile_path(step) -> dict:
     for _ in range(5):
         step()
@@ -101,6 +120,7 @@ def profile_path(step) -> dict:
         "device_ms_per_call": sum(e.time_range.elapsed_us() for e in device) / 1e3 / TRACED,
         "traced_ms_per_call": window_us / 1e3 / TRACED,
         "busy_share": busy_us / window_us,
+        "host_syncs_per_call": host_syncs(step),
         "top_kernels_per_call": {k: {"launches": v[0] / TRACED, "us": v[1] / TRACED}
                                  for k, v in top},
     }

@@ -246,6 +246,10 @@ def expected_kernels(draw: dict) -> set[str]:
         expect.add("detect_frontend")
     elif block_route(cfg.topk_mode, cfg.nms_radius, h, w, cfg.max_keypoints):
         expect.add("select_frontend")
+    if draw["family"] == "essential":
+        expect |= {"min_eigvec9", "project_essential"}
+        if cfg.essential_ransac_hypotheses:
+            expect.add("essential_hypotheses")
     return expect
 
 

@@ -12,11 +12,14 @@ import torch
 
 from onnx_image_processing_tpu_torch import models, ops
 from onnx_image_processing_tpu_torch.kernels import (akaze_ladder, detect_frontend,
-                                                     launch_counts, reset_launch_counts,
-                                                     select_frontend, sinkhorn_kernel,
-                                                     sparse_sampler)
+                                                     essential_solve, launch_counts,
+                                                     reset_launch_counts, select_frontend,
+                                                     sinkhorn_kernel, sparse_sampler)
 
 pytestmark = pytest.mark.cuda
+
+# A matcher without an essential tail launches none of the solve's kernels.
+NO_ESSENTIAL = {"min_eigvec9": 0, "project_essential": 0, "essential_hypotheses": 0}
 
 
 @pytest.fixture
@@ -247,7 +250,7 @@ def test_flagship_launches_each_kernel(dev):
     torch.cuda.synchronize()
     assert launch_counts() == {"select_frontend": 1, "sparse_sampler": 1, "sinkhorn": 1,
                                "detect_frontend": 0, "akaze_ladder": 0,
-                               "sparse_sampler_ablate": 0}
+                               "sparse_sampler_ablate": 0, **NO_ESSENTIAL}
     assert out[0].shape == (1, 64, 2) and out[0].is_cuda
 
 
@@ -442,7 +445,7 @@ def test_akaze_matcher_launches_each_kernel(dev):
     torch.cuda.synchronize()
     assert launch_counts() == {"select_frontend": 1, "sparse_sampler": 1, "sinkhorn": 1,
                                "detect_frontend": 0, "akaze_ladder": 1,
-                               "sparse_sampler_ablate": 0}
+                               "sparse_sampler_ablate": 0, **NO_ESSENTIAL}
     assert out[0].shape == (1, 64, 2) and out[0].is_cuda
 
 
@@ -520,7 +523,7 @@ def test_dense_matcher_launches_and_oriented_map(dev):
     torch.cuda.synchronize()
     assert launch_counts() == {"select_frontend": 1, "sparse_sampler": 1, "sinkhorn": 1,
                                "detect_frontend": 0, "akaze_ladder": 0,
-                               "sparse_sampler_ablate": 0}
+                               "sparse_sampler_ablate": 0, **NO_ESSENTIAL}
     assert out[0].shape == (1, 64, 2) and out[0].is_cuda
     table = ops.BADTable(ops.load_bad_params(256)).to(dev)
     theta = ops.angle_estimation(imgs[0])
@@ -648,3 +651,177 @@ def test_log_marginals_equal_the_cpu(dev):
         cpu = ops.sinkhorn_inputs(d, d[:, :3])[1:]
         card = ops.sinkhorn_inputs(d.to(dev), d[:, :3].to(dev))[1:]
         assert all(torch.equal(a, b.cpu()) for a, b in zip(cpu, card)), n
+
+
+# ---- the essential solve's kernels ----------------------------------------------
+
+def _rotation(axis_angle):
+    th = np.linalg.norm(axis_angle)
+    k = axis_angle / th
+    kx = np.array([[0, -k[2], k[1]], [k[2], 0, -k[0]], [-k[1], k[0], 0]])
+    return np.eye(3) + np.sin(th) * kx + (1 - np.cos(th)) * kx @ kx
+
+
+def _two_view(n, noise, seed):
+    """Normalized (x, y) of n points seen from two cameras (a small
+    rotation, a unit translation), with Gaussian noise."""
+    rng = np.random.default_rng(seed)
+    pts = np.c_[rng.uniform(-1, 1, (n, 2)), rng.uniform(2, 5, n)]
+    t = rng.normal(size=3)
+    cam2 = pts @ _rotation(rng.normal(0, 0.05, 3)).T + t / np.linalg.norm(t)
+    x1 = pts[:, :2] / pts[:, 2:] + rng.normal(0, noise, (n, 2))
+    x2 = cam2[:, :2] / cam2[:, 2:] + rng.normal(0, noise, (n, 2))
+    return x1, x2
+
+
+def _unit_diff(a, b):
+    """Per leading index: max abs difference after scaling each trailing
+    block to unit norm, up to sign (float64)."""
+    a, b = (np.asarray(x, np.float64).reshape(len(x), -1) for x in (a, b))
+    a = a / np.linalg.norm(a, axis=1, keepdims=True)
+    b = b / np.linalg.norm(b, axis=1, keepdims=True)
+    return np.minimum(np.abs(a - b).max(1), np.abs(a + b).max(1))
+
+
+def _normal_matrices():
+    """Random PSD 9x9 matrices of mixed scales, 8-point normal matrices of
+    clean two-view sets, of a pure shift (a 3-dim null space), a zero
+    matrix and a diagonal one with tied smallest entries."""
+    rng = np.random.default_rng(31)
+    mats = [(a.T @ a) for a in rng.normal(size=(48, 40, 9)) * rng.uniform(0.01, 100, (48, 1, 9))]
+    for seed in range(12):
+        x1, x2 = _two_view(64, 1e-4, seed)
+        if seed % 4 == 3:
+            x2 = x1 + 0.05
+        h1, h2 = np.c_[x1, np.ones(64)], np.c_[x2, np.ones(64)]
+        a = (h1[:, :, None] * h2[:, None, :]).reshape(64, 9)
+        mats.append(a.T @ a)
+    mats += [np.zeros((9, 9)), np.diag([3.0, 1, 1, 2, 5, 1, 7, 8, 9])]
+    return np.stack(mats).astype(np.float32)
+
+
+def test_min_eigvec9_kernel_matches_plain(dev):
+    """Up to sign within 1e-6 where the two smallest eigenvalues part by at
+    least 1e-6 of the largest; elsewhere (a repeated smallest eigenvalue:
+    another vector of the same space) the residual |Mv| at most the plain
+    version's + 1e-6 |M|. A zero matrix gives e0, ties the lowest index."""
+    m = _normal_matrices()
+    got = essential_solve.min_eigvec9(torch.from_numpy(m).to(dev)).cpu().numpy()
+    want = essential_solve.min_eigvec9_plain(torch.from_numpy(m)).numpy()
+    lam = np.linalg.eigvalsh(m.astype(np.float64))
+    apart = lam[:, 1] - lam[:, 0] >= 1e-6 * np.abs(lam).max(1)
+    assert (_unit_diff(got, want)[apart] <= 1e-6).all()
+    m64 = m.astype(np.float64)
+    resid = [np.linalg.norm(np.einsum("bij,bj->bi", m64, v.astype(np.float64)), axis=1)
+             for v in (got, want)]
+    fro = np.linalg.norm(m64, axis=(1, 2))
+    assert (resid[0][~apart] <= resid[1][~apart] + 1e-6 * fro[~apart]).all()
+    assert (~apart).sum() >= 4
+    np.testing.assert_array_equal(got[-2], np.eye(9)[0])
+    np.testing.assert_array_equal(np.abs(got[-1]), np.eye(9)[1])
+
+
+def test_project_essential_kernel_matches_plain(dev):
+    rng = np.random.default_rng(32)
+    e = rng.normal(size=(300, 3, 3)).astype(np.float32)
+    for i in range(20):   # near-essential matrices
+        u, _, vt = np.linalg.svd(rng.normal(size=(3, 3)))
+        e[i] = u @ np.diag([1.0, 1 + 0.01 * rng.normal(), 1e-3 * rng.normal()]) @ vt
+    got = essential_solve.project_essential(torch.from_numpy(e).to(dev)).cpu().numpy()
+    want = essential_solve.project_essential_plain(torch.from_numpy(e)).numpy()
+    assert _unit_diff(got, want).max() <= 1e-5
+    zero = essential_solve.project_essential(torch.zeros((1, 3, 3), device=dev))
+    assert torch.equal(zero, torch.zeros_like(zero))
+
+
+def _samples(s=256, seed=33):
+    """``s`` minimal samples of one noisy two-view set: weights, points."""
+    rng = np.random.default_rng(seed)
+    x1, x2 = _two_view(300, 1e-3, seed)
+    idx = np.stack([rng.choice(300, 8, replace=False) for _ in range(s)])
+    w = np.ones((s, 8), np.float32)
+    w[::5, 7] = 0.0   # an invalid pick: a rank-deficient system
+    return (torch.from_numpy(w), torch.from_numpy(x1[idx].astype(np.float32)),
+            torch.from_numpy(x2[idx].astype(np.float32)), x1, x2)
+
+
+def test_essential_hypotheses_kernel_matches_plain(dev):
+    """A float32 solve of an ill-conditioned minimal sample moves far from
+    the float64 one, in the plain version too, so two float32 solves part
+    by as much: the kernel's median distance from the
+    float64 solve is held to 4x the plain version's (the rule of
+    ``test_torch_geometry._as_accurate_as_jax``), and the best MSAC score of
+    its hypotheses to no less than (1 - 1e-3) x the plain version's."""
+    w, p1, p2, x1, x2 = _samples()
+    got = essential_solve.essential_hypotheses(w.to(dev), p1.to(dev), p2.to(dev)).cpu()
+    want = essential_solve.essential_hypotheses_plain(w, p1, p2)
+    f64 = essential_solve.essential_hypotheses_plain(w.double(), p1.double(), p2.double())
+    assert torch.isfinite(got).all()
+    full = (w > 0).all(1).numpy()   # samples with a zero weight have no unique solution
+    assert (np.median(_unit_diff(got.numpy(), f64.numpy())[full])
+            <= 4 * np.median(_unit_diff(want.numpy(), f64.numpy())[full]))
+    from onnx_image_processing_tpu_torch.geometry import sampson_error_matched
+
+    tau = (0.75 / 500) ** 2
+    c1, c2 = (torch.from_numpy(x.astype(np.float32)) for x in (x1, x2))
+    best = [float(torch.clamp_min(1 - sampson_error_matched(e.float(), c1, c2) / tau, 0)
+                  .sum(1).max()) for e in (got, want)]
+    assert best[0] >= (1 - 1e-3) * best[1]
+
+
+def test_essential_kernels_repeat_and_graph_replay(dev):
+    """Deterministic: 20 calls in a row, and a CUDA graph of the three
+    calls replayed twice, give the eager result bit for bit."""
+    w, p1, p2, _, _ = _samples(128)
+    w, p1, p2 = w.to(dev), p1.to(dev), p2.to(dev)
+    m = torch.from_numpy(_normal_matrices()).to(dev)
+    e = torch.from_numpy(np.random.default_rng(34).normal(size=(64, 3, 3))
+                         .astype(np.float32)).to(dev)
+
+    def calls():
+        return (essential_solve.min_eigvec9(m), essential_solve.project_essential(e),
+                essential_solve.essential_hypotheses(w, p1, p2))
+
+    want = calls()
+    for _ in range(20):
+        assert all(torch.equal(a, b) for a, b in zip(calls(), want))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        calls()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = calls()
+    for _ in range(2):
+        for t in captured:
+            t.fill_(7.0)
+        reset_launch_counts()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(captured, want))
+        assert sum(launch_counts().values()) == 0   # a replay is not a wrapper call
+
+
+@pytest.mark.parametrize("case", ["min_eigvec9", "project_essential", "essential_hypotheses"])
+def test_essential_opcheck_on_the_card(dev, case):
+    w, p1, p2, _, _ = _samples(16)
+    args = {"min_eigvec9": (torch.from_numpy(_normal_matrices()[:5]),),
+            "project_essential": (torch.from_numpy(np.random.default_rng(35).normal(
+                size=(4, 3, 3)).astype(np.float32)),),
+            "essential_hypotheses": (w, p1, p2)}[case]
+    op = getattr(essential_solve, case + "_op")
+    reset_launch_counts()
+    torch.library.opcheck(op, tuple(a.to(dev) for a in args))
+    assert sum(launch_counts().values()) > 0
+
+
+def test_essential_wrappers_validate_inputs(dev):
+    with pytest.raises(ValueError):
+        essential_solve.min_eigvec9(torch.zeros((2, 9, 9), dtype=torch.float64, device=dev))
+    with pytest.raises(ValueError):
+        essential_solve.essential_hypotheses(torch.ones((4, 7), device=dev),
+                                             torch.zeros((4, 7, 2), device=dev),
+                                             torch.zeros((4, 7, 2), device=dev))
+    with pytest.raises(ValueError):
+        essential_solve.project_essential(torch.zeros((2, 3, 3), dtype=torch.float16, device=dev))

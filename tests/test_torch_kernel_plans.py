@@ -18,8 +18,8 @@ import torch
 
 from onnx_image_processing_tpu_torch import ops
 from onnx_image_processing_tpu_torch.kernels import (_build, akaze_ladder, detect_frontend,
-                                                     select_frontend, sinkhorn_kernel,
-                                                     sparse_sampler)
+                                                     essential_solve, select_frontend,
+                                                     sinkhorn_kernel, sparse_sampler)
 
 CSRC = Path(sinkhorn_kernel.__file__).resolve().parents[1] / "csrc"
 
@@ -237,7 +237,10 @@ def _c_params(source: str, name: str) -> list[str]:
     ("akaze_ladder.cu", "oip_akaze_ladder", akaze_ladder._ARGTYPES),
     ("akaze_ladder.cu", "oip_akaze_ladder_resident", akaze_ladder._RESIDENT_ARGTYPES),
     ("detect_frontend.cu", "oip_detect_frontend", detect_frontend._ARGTYPES),
-    ("detect_frontend.cu", "oip_detect_select", detect_frontend._SELECT_ARGTYPES)])
+    ("detect_frontend.cu", "oip_detect_select", detect_frontend._SELECT_ARGTYPES),
+    ("essential_solve.cu", "oip_min_eigvec9", essential_solve._ARGTYPES),
+    ("essential_solve.cu", "oip_project_essential", essential_solve._ARGTYPES),
+    ("essential_solve.cu", "oip_essential_hypotheses", essential_solve._HYPOTHESES_ARGTYPES)])
 def test_wrapper_argtypes_match_c_entries(source, name, argtypes):
     """A pointer is passed as c_void_p, an int as c_int, a float as c_float,
     one for one: ctypes would otherwise cut pointers or shift arguments."""

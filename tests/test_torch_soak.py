@@ -214,6 +214,17 @@ def test_expected_kernels_follow_the_routes():
     assert soak.expected_kernels({**base, "family": "sinkhorn"}) == {"sinkhorn"}
 
 
+@pytest.mark.parametrize("ransac", [0, 128])
+def test_expected_kernels_of_the_essential_family(ransac):
+    """An essential draw's card run launches the solve's kernels: the
+    minimum eigenvector and the projection, and with RANSAC the hypotheses."""
+    draw = {"idx": 0, "seed": 0, "family": "essential", **SMALL_DRAWS["essential"],
+            "essential_ransac": ransac}
+    solve = {"min_eigvec9", "project_essential"} | ({"essential_hypotheses"} if ransac else set())
+    assert solve <= soak.expected_kernels(draw)
+    assert {"sparse_sampler", "sinkhorn"} <= soak.expected_kernels(draw)
+
+
 def test_main_raises_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="no CUDA device"):

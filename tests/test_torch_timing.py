@@ -1,7 +1,7 @@
 """The port's CLI timing layer on the CPU (``cli/common.py``): the chain
 protocol against the JAX package's ``lax.scan`` chain, ``benchmark_chain``,
-``--timing`` in the three image CLIs, and which registry names the card's
-CUDA-graph chain refuses.
+``--timing`` in the three image CLIs, and the CUDA-graph chain's refusal
+of a pipeline that names a capture blocker (no registry name does).
 
 The JAX chain below is the body of the JAX package's
 ``cli/common.py`` ``benchmark_chain`` (its ``lax.scan`` over ``fn``),
@@ -112,25 +112,71 @@ def test_chain_carries_every_input():
     assert torch.equal(seen[1][1], b + 2.0 * 1e-12)
 
 
-@pytest.mark.parametrize("name", [
-    "shi_tomasi_angle_sparse_bad_sinkhorn_essential_matrix",
-    "akaze_sparse_bad_sinkhorn_essential_matrix", "essential_matrix_estimator"])
-def test_essential_names_carry_their_capture_blocker(name):
+ESSENTIAL = ["shi_tomasi_angle_sparse_bad_sinkhorn_essential_matrix",
+             "akaze_sparse_bad_sinkhorn_essential_matrix", "essential_matrix_estimator"]
+
+
+@pytest.mark.parametrize("name", ESSENTIAL)
+def test_essential_names_carry_no_capture_blocker(name):
+    """The essential solve runs as kernels on the card and reads nothing on
+    the host, so these names capture like the rest."""
     fn = models.build(name, device="cpu")
-    assert fn.pipeline_name == name
-    assert "eigh" in fn.capture_blocker and "svd" in fn.capture_blocker
+    assert fn.pipeline_name == name and fn.capture_blocker is None
 
 
 def test_captured_names_carry_no_blocker():
-    """Every other registry name (the matchers, their extraction forms, the
-    heads, sinkhorn and voxel downsampling) captures on the card."""
+    """Every registry name (the matchers, their extraction and essential
+    forms, the heads, sinkhorn, the estimator and voxel downsampling)
+    captures on the card."""
     blocked = {n for n in models.names() if models.get(n).capture_blocker}
-    assert blocked == {"shi_tomasi_angle_sparse_bad_sinkhorn_essential_matrix",
-                       "akaze_sparse_bad_sinkhorn_essential_matrix",
-                       "essential_matrix_estimator"}
+    assert blocked == set()
     fn = models.build(FLAGSHIP, fused_detect=True, device="cpu")
     assert fn.capture_blocker is None and common._path_name(fn) == FLAGSHIP
     assert common._path_name(lambda *a: a) == "function"
+
+
+def test_chain_refuses_a_blocked_function_before_capture(monkeypatch):
+    """A pipeline that names a capture blocker is refused on the card
+    before anything is captured or synchronized; on the CPU it runs."""
+    def fn(x):
+        return x + 1
+
+    fn.capture_blocker = "it reads a value on the host"
+    fn.pipeline_name = "blocked"
+
+    def no_cuda(*a, **k):
+        raise AssertionError("touched CUDA before the refusal")
+
+    for attr in ("graph", "CUDAGraph", "synchronize", "reset_peak_memory_stats",
+                 "memory_allocated"):
+        monkeypatch.setattr(torch.cuda, attr, no_cuda)
+
+    class OnTheCard:   # chain_times reads only the device of its first argument
+        device = torch.device("cuda")
+
+    with pytest.raises(ValueError, match="blocked cannot be captured in a CUDA graph: "
+                                         "it reads a value on the host"):
+        common.benchmark_chain(fn, (OnTheCard(),), n=2, reps=1)
+    assert common.chain_times(fn, (torch.zeros(3),), n=2, reps=1).ms_per_frame > 0
+
+
+@pytest.mark.parametrize("name", ESSENTIAL)
+def test_essential_chain_on_the_cpu_equals_its_calls(name):
+    """The CPU chain of an essential name (a plain loop) equals its calls
+    made one by one: each on the carry (every input moved by s * 1e-12),
+    their first outputs' first elements s summed in float32."""
+    kw = dict(max_keypoints=64) if name != "essential_matrix_estimator" else {}
+    fn = models.build(name, device="cpu", **kw)
+    args = models.arg_specs(models.get(name), fn.cfg, 64, 80, device="cpu")
+    with torch.inference_mode():
+        got = common._chain(fn, args, CHAIN_LEN)
+        carry, calls = args, []
+        for _ in range(CHAIN_LEN):
+            calls.append(fn(*carry)[0].reshape(-1)[0])
+            carry = tuple(c + calls[-1] * 1e-12 for c in carry)
+        t = common.chain_times(fn, args, n=1, reps=1)
+    assert got.dtype == torch.float32 and torch.equal(got, calls[0] + calls[1] + calls[2])
+    assert math.isfinite(t.ms_per_frame) and t.capture_s == 0.0
 
 
 # ---- the three CLIs -------------------------------------------------------
