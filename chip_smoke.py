@@ -52,10 +52,13 @@ Phases (any failed check raises; nothing falls back to the CPU):
    texture (``vo_sequence``) through the streaming split of the AKAZE
    essential pipeline (registry defaults, BASELINE config #5) and of the
    flagship essential pipeline with the in-graph RANSAC (256 hypotheses, 2
-   polish steps), 100 matches at threshold 0.1, as the VO loop runs them:
-   launch counts per frame, streaming vs two-image on the card, E on the
-   card vs the CPU, E finite and rank 2, the median Sampson error of the
-   valid matches; ms per frame for extract and match, host syncs per frame.
+   polish steps), 100 matches at threshold 0.1, as the VO loop runs them
+   (the CLI's ``build_vo_matcher``: each half ``models.jit`` of its module):
+   launch counts per frame of the eager modules, the jitted frames equal to
+   them bit for bit, streaming vs two-image on the card, E on the card vs
+   the CPU, E finite and rank 2, the median Sampson error of the valid
+   matches; ms per frame for extract and match, eager and jitted; one host
+   sync per jitted frame (the host copy).
    Then (R, t) of every frame by the port's NumPy ``recover_pose`` (no
    OpenCV) from the card's E and matches and from the CPU's, against the
    truth (R = I, t along +-x): per-frame rotation and t-direction errors,
@@ -73,8 +76,9 @@ Phases (any failed check raises; nothing falls back to the CPU):
    gather route, both on the card, with its ms and peak memory; the
    ``shi_tomasi_angle_sparse_bad`` head with and without ``fused_detect``,
    card vs CPU.
-9. The device functions of the three image CLIs on the card (counts,
-   shapes, the 7-px shift), then the sampler's stage ablation
+9. The device functions of the three image CLIs on the card, given
+   ``models.jit`` of the pipeline as the CLIs give them (counts, shapes,
+   the 7-px shift), then the sampler's stage ablation
    (``tools.ablate_sampler``), its JSON lines printed.
 10. The rest of the op library and the serving layer, card vs CPU at the
    sizes users run: FAST (defaults, and NMS radius 3) and DoG (5 scales, 39
@@ -85,7 +89,9 @@ Phases (any failed check raises; nothing falls back to the CPU):
    [W - 0.5, W)); ``refine_keypoints_subpixel`` at the flagship's 512
    keypoints; the feature-detection CLI's ``detect`` with ``fast`` and
    ``dog_with_score``; then ``stream_map_chunked(models.build_batched(...))``
-   of the flagship over 22 pairs at chunk 1, 4, 8 and depth 1, 2, and
+   of the flagship over 22 pairs at chunk 1, 4, 8 and depth 1, 2, eager and
+   jitted (``models.jit``, a graph per chunk shape) stream by stream in
+   turn, and
    ``stream_map`` of its streaming extract at depth 1, 2, each held to the
    per-pair sequential loop on the card, with pairs/s on the host clock
    and the device launches per chunk.
@@ -101,8 +107,10 @@ Phases (any failed check raises; nothing falls back to the CPU):
    its streaming pair (extract, match) matches the two-image matcher
    (keypoints equal, P within 1e-5).
 12. The mesh and the soak: ``parallel.shard_batch(models.build_batched(
-   flagship), parallel.make_mesh())`` over 4 texture pairs against the
-   unsharded call (bit for bit, the same launches); then
+   flagship), parallel.make_mesh())`` over 4 texture pairs, each device's
+   replica jitted, against the unsharded call (bit for bit on two input
+   sets in turn; the first call's launches are the replicas' warm-ups and
+   captures); then
    ``tools.soak``: 120 seeded draws of the flagship, AKAZE, essential, ties
    and ragged Sinkhorn families, each on the card and on the CPU, compared,
    held to the soak's invariants and to the launches of its path; the
@@ -122,6 +130,14 @@ Phases (any failed check raises; nothing falls back to the CPU):
    ``chain_times`` at n = 30 (two graphs of 30 and 90 chained calls) and
    the host loop of ``run_benchmark``, with the graph's nodes, the capture
    seconds and the peak memory, one JSON line per path.
+14. ``models.jit`` (``core/jit.py``, the port's ``jax.jit``) of every path
+   of phase 13, of the flagship's and AKAZE's streaming split (extract on
+   an image, match on feature tuples) and of ``build_batched`` at chunks 4
+   and 8 over 8 pairs: 5 jitted calls on two inputs in turn, each equal to
+   eager bit for bit right after the call and again after the last call
+   (held outputs are not overwritten); eager and jitted host ms per call
+   in turn (median of 20 each); graphs, replays, graph nodes, first-call
+   and capture seconds, peak MiB; one JSON line per path.
 
 The last two lines are a JSON object of per-kernel results (each with its
 launches on the paths, launches per call of its path, error against its
@@ -521,7 +537,8 @@ def run_dense(g_pair, c_pair, paths: dict) -> None:
 
 def run_clis(g_pair, c_pair) -> None:
     """Phase 9, first half: the device functions of the three image CLIs on
-    the card (image I/O and drawing need PIL, which is not needed here),
+    the card, given ``models.jit`` of the pipeline as the CLIs' ``main``
+    gives them (image I/O and drawing need PIL, which is not needed here),
     with the CLIs' host post-processing."""
     from onnx_image_processing_tpu_torch import models
     from onnx_image_processing_tpu_torch.cli import image_matching, image_matching_extraction
@@ -532,12 +549,12 @@ def run_clis(g_pair, c_pair) -> None:
                       g_pair[0], c_pair[0])
 
     t1, t2 = texture_pair()
-    k1, k2, p = image_matching.match(models.build(FLAGSHIP, device=dev,
-                                                  max_keypoints=MAX_KEYPOINTS), t1, t2)
+    k1, k2, p = image_matching.match(models.jit(models.build(
+        FLAGSHIP, device=dev, max_keypoints=MAX_KEYPOINTS)), t1, t2)
     mk1, mk2, _ = extract_matches(p, k1, k2, threshold=0.1, max_matches=100)
     check(p.shape == (1, MAX_KEYPOINTS + 1, MAX_KEYPOINTS + 1), "[cli image_matching] P shape")
-    em1, em2, _ = image_matching_extraction.match(
-        models.build(FLAGSHIP + "_extraction", device=dev, max_keypoints=MAX_KEYPOINTS), t1, t2)
+    em1, em2, _ = image_matching_extraction.match(models.jit(models.build(
+        FLAGSHIP + "_extraction", device=dev, max_keypoints=MAX_KEYPOINTS)), t1, t2)
     for label, a, b in (("image_matching", mk1, mk2),
                         ("image_matching_extraction", em1, em2)):
         d = b - a
@@ -558,8 +575,8 @@ def cli_detect_counts(label, names, g_img, c_img, max_keypoints: int = 1000) -> 
 
     img = c_img.numpy()
     for name in names:
-        sg = feature_detection.detect(models.build(name, device=g_img.device), img)
-        sc = feature_detection.detect(models.build(name, device="cpu"), img)
+        sg, sc = (feature_detection.detect(models.jit(models.build(name, device=d)), img)
+                  for d in (g_img.device, "cpu"))
         kw = dict(threshold=0.01, max_keypoints=max_keypoints, nms_radius=3, subpixel=True)
         ng, nc = len(select_keypoints(sg, **kw)), len(select_keypoints(sc, **kw))
         print(f"[{label} {name}] score map {sg.shape}, keypoints: card {ng}, CPU {nc}")
@@ -807,23 +824,35 @@ def run_serving(dev, paths: dict, results: dict) -> None:
         results["sparse_sampler"]["max_abs_err"], (s_k - s_p).abs().max().item())
 
     fb = models.build_batched(FLAGSHIP, max_keypoints=MAX_KEYPOINTS, device=dev)
+    # The served form, eager and jitted (one CUDA graph per chunk shape),
+    # stream by stream in turn.
+    served = {"eager": fb, "jit": models.jit(fb)}
     reset_launch_counts()
     for chunk in SERVE_CHUNKS:
         for depth in SERVE_DEPTHS:
-            list(stream_map_chunked(fb, pairs[:2 * chunk], chunk, depth))   # warm-up
-            rates = []
+            for f in served.values():   # warm-up, and the jitted form's capture
+                list(stream_map_chunked(f, pairs[:2 * chunk], chunk, depth))
+            rates, err = {k: [] for k in served}, {}
             for rep in range(SERVE_REPS):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                out = list(stream_map_chunked(fb, pairs, chunk, depth))
-                rates.append(SERVE_PAIRS / (time.perf_counter() - t0))
-                if rep == 0:
-                    err = compare(f"serving chunk {chunk} depth {depth}", out, seq, 2)
-            print(f"[serving] stream_map_chunked(build_batched({FLAGSHIP})) chunk {chunk}, depth "
-                  f"{depth}: {np.median(rates):.2f} pairs/s (median of {SERVE_REPS} streams of "
-                  f"{SERVE_PAIRS} pairs, {min(rates):.2f}..{max(rates):.2f}; host clock, host "
-                  f"stacking and copies included); keypoints equal to the per-pair loop, P max "
-                  f"abs diff {err:.3e} (max {SERVE_P_ATOL})")
+                for kind in (("eager", "jit") if rep % 2 == 0 else ("jit", "eager")):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    out = list(stream_map_chunked(served[kind], pairs, chunk, depth))
+                    rates[kind].append(SERVE_PAIRS / (time.perf_counter() - t0))
+                    if rep == 0:
+                        err[kind] = compare(f"serving {kind} chunk {chunk} depth {depth}",
+                                            out, seq, 2)
+            for kind, r in rates.items():
+                print(f"[serving] stream_map_chunked({'jit(' if kind == 'jit' else ''}"
+                      f"build_batched({FLAGSHIP}){')' if kind == 'jit' else ''}) chunk {chunk}, "
+                      f"depth {depth}: {np.median(r):.2f} pairs/s (median of {SERVE_REPS} "
+                      f"streams of {SERVE_PAIRS} pairs, {min(r):.2f}..{max(r):.2f}; host clock, "
+                      f"host stacking and copies included); keypoints equal to the per-pair "
+                      f"loop, P max abs diff {err[kind]:.3e} (max {SERVE_P_ATOL})")
+            print(json.dumps({"phase10_serving": {"chunk": chunk, "depth": depth, **{
+                f"{k}_pairs_per_s": float(np.median(r)) for k, r in rates.items()}}}))
+    check(served["jit"].graphs == len(SERVE_CHUNKS),
+          f"[serving] {served['jit'].graphs} graphs for {len(SERVE_CHUNKS)} chunk shapes")
     for depth in SERVE_DEPTHS:
         rates = []
         for rep in range(SERVE_REPS):
@@ -1012,32 +1041,47 @@ def run_export(g_pair, paths: dict) -> None:
 def run_mesh(dev, paths: dict) -> None:
     """Phase 12, the mesh: ``shard_batch(build_batched(flagship),
     make_mesh())`` over B = 4 texture pairs on every card of the machine,
-    against the unsharded call: outputs bit for bit, the same launches."""
+    each device's replica jitted (a CUDA graph per device), against the
+    unsharded eager call: the first call's launches are each replica's
+    warm-ups and capture, then calls on two input sets in turn equal the
+    unsharded call bit for bit."""
     import torch
     from onnx_image_processing_tpu_torch import models
+    from onnx_image_processing_tpu_torch.core.jit import WARMUP_CALLS
     from onnx_image_processing_tpu_torch.kernels import launch_counts, reset_launch_counts
     from onnx_image_processing_tpu_torch.parallel import make_mesh, shard_batch
 
     mesh = make_mesh()
     fb = models.build_batched(FLAGSHIP, max_keypoints=MAX_KEYPOINTS, device=dev)
-    i1, i2 = (np.concatenate(side) for side in zip(*(texture_pair(s) for s in range(MESH_B))))
+    sets = [tuple(np.concatenate(side) for side in zip(*(texture_pair(s + first)
+                                                         for s in range(MESH_B))))
+            for first in (0, MESH_B)]
     reset_launch_counts()
-    local = fb(torch.from_numpy(i1).to(dev), torch.from_numpy(i2).to(dev))
+    local = [fb(*(torch.from_numpy(a).to(dev) for a in x)) for x in sets]
     torch.cuda.synchronize()
-    counts_local = launch_counts()
+    counts_local = {k: c // len(sets) for k, c in launch_counts().items()}
     sharded_fn = shard_batch(fb, mesh)
     reset_launch_counts()
-    out = sharded_fn(i1, i2)
+    outs = [sharded_fn(*sets[0])]
     for d in mesh.devices:
         torch.cuda.synchronize(d)
     counts = launch_counts()
-    same = all(torch.equal(s.gather(dev), t) for s, t in zip(out, local))
+    outs += [sharded_fn(*sets[i % 2]) for i in range(1, 5)]
+    same = sum(all(torch.equal(s.gather(dev), t) for s, t in zip(out, local[i % 2]))
+               for i, out in enumerate(outs))
+    replicas = sorted({(r.graphs, r.replays) for r in sharded_fn.replicas.values()})
+    calls = (WARMUP_CALLS + 1) * len(mesh)
     print(f"[mesh] shard_batch(build_batched(flagship), make_mesh()) over {len(mesh)} "
-          f"device(s) {[str(d) for d in mesh.devices]} at B = {MESH_B}: outputs equal to the "
-          f"unsharded call bit for bit {same}; launches {json.dumps(counts, sort_keys=True)} "
-          f"(unsharded {json.dumps(counts_local, sort_keys=True)})")
-    check(same, "[mesh] the sharded call differs from the unsharded one")
-    check(counts == counts_local, "[mesh] the sharded call launched other kernels")
+          f"device(s) {[str(d) for d in mesh.devices]} at B = {MESH_B}, jitted replicas "
+          f"(graphs, replays) {replicas}: {same} of {len(outs)} calls on two input sets in "
+          f"turn equal to the unsharded call bit for bit; first call's launches "
+          f"{json.dumps(counts, sort_keys=True)} (unsharded per call "
+          f"{json.dumps(counts_local, sort_keys=True)}, x {calls} expected)")
+    check(same == len(outs), "[mesh] the sharded call differs from the unsharded one")
+    check(replicas == [(1, len(outs))], "[mesh] a replica did not replay one graph per call")
+    check(counts == {k: calls * c for k, c in counts_local.items()},
+          "[mesh] the sharded call launched other kernels")
+    check(not outputs_equal(*local), "[mesh] the two input sets give the same outputs")
     check_counts("mesh", counts, {"select_frontend", "sparse_sampler", "sinkhorn"})
     paths["mesh"] = counts
 
@@ -1192,6 +1236,118 @@ def run_chain(g1, g2, paths: dict) -> None:
                 "peak_mib": chain.peak_bytes / 2 ** 20}))
 
 
+JIT_CALLS = 5        # phase 14: jitted calls on two inputs in turn, each held to eager
+JIT_TIMED = 20       # phase 14: timed calls of each form, eager and jitted in turn
+JIT_BATCH = 8        # phase 14: pairs per build_batched call
+JIT_CHUNKS = (4, 8)  # phase 14: build_batched's chunks
+
+
+def host_ms_in_turn(fns: dict, args) -> dict:
+    """Host ms of one synchronized call of each of ``fns``, called in turn
+    (the order alternating), the median of JIT_TIMED each."""
+    import torch
+
+    times = {k: [] for k in fns}
+    for i in range(JIT_TIMED):
+        for key in (list(fns) if i % 2 == 0 else list(fns)[::-1]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fns[key](*args)
+            torch.cuda.synchronize()
+            times[key].append((time.perf_counter() - t0) * 1e3)
+    return {k: float(np.median(v)) for k, v in times.items()}
+
+
+def jit_paths(g1, g2):
+    """Phase 14's paths: (label, registry name, eager module, its inputs, a
+    second input). Phase 13's paths, the flagship's and AKAZE's streaming
+    split (the match on feature tuples) and ``build_batched`` at each of
+    JIT_CHUNKS over JIT_BATCH pairs."""
+    import torch
+    from onnx_image_processing_tpu_torch import models
+    from onnx_image_processing_tpu_torch.models.registry import k_inv_for
+
+    dev = g1.device
+    t1, t2 = (torch.from_numpy(a).to(dev) for a in texture_pair())
+    k_inv = torch.from_numpy(k_inv_for(H, W)).to(dev)
+    for label, name, kw, _ in CHAIN_PATHS:
+        spec = models.get(name)
+        extra = dict(max_matches=MAX_MATCHES) if name.endswith("_extraction") else {}
+        fn = models.build(name, device=dev, **extra, **kw)
+        if spec.make_args is not None:
+            args = models.arg_specs(spec, fn.cfg, H, W, device=dev)
+            other = (args[0].flip(-1), *args[1:])
+        else:
+            args, other = (g1, g2)[:spec.n_images], (t1, t2)[:spec.n_images]
+            if spec.takes_k_inv:
+                args, other = (*args, k_inv), (*other, k_inv)
+        yield label, name, fn, args, other
+    for label, name, kw in (("flagship", FLAGSHIP, dict(max_keypoints=MAX_KEYPOINTS)),
+                            ("AKAZE", AKAZE, {})):
+        extract, match = models.build_streaming(name + "_extraction", device=dev,
+                                                max_matches=MAX_MATCHES, **kw)
+        yield f"{label} streaming extract", extract.pipeline_name, extract, (g1,), (t1,)
+        feats = [tuple(extract(x) for x in pair) for pair in ((g1, g2), (t1, t2))]
+        yield f"{label} streaming match", match.pipeline_name, match, *feats
+    sets = [tuple(torch.from_numpy(np.concatenate(side)).to(dev)
+                  for side in zip(*(texture_pair(200 + first + i) for i in range(JIT_BATCH))))
+            for first in (0, JIT_BATCH)]
+    for chunk in JIT_CHUNKS:
+        fb = models.build_batched(FLAGSHIP, chunk=chunk, device=dev, max_keypoints=MAX_KEYPOINTS)
+        yield f"batched chunk {chunk}", FLAGSHIP, fb, *sets
+
+
+def run_jit(g1, g2) -> None:
+    """Phase 14: every path through ``models.jit``, the port's ``jax.jit``.
+    The jitted calls on the path's inputs and a second input in turn each
+    equal the eager module on the same inputs bit for bit, right after the
+    call and again after the last call (each call's outputs are fresh
+    tensors that later calls leave alone); eager and jitted host ms per
+    call (median of JIT_TIMED each, in turn); graphs, replays, first-call
+    seconds (warm-ups, capture and instantiation; the capture alone beside
+    it), graph nodes and the first call's peak device memory. One JSON line
+    per path."""
+    import torch
+    from onnx_image_processing_tpu_torch import models
+
+    dev = g1.device
+    with torch.inference_mode():
+        for label, name, module, args, other in jit_paths(g1, g2):
+            inputs = (args, other)
+            eager = [leaves(module(*x)) for x in inputs]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            base = torch.cuda.memory_allocated(dev)
+            fn = models.jit(module)
+            held, same = [], 0
+            for i in range(JIT_CALLS):
+                held.append(leaves(fn(*inputs[i % 2])))
+                torch.cuda.synchronize()
+                same += outputs_equal(held[-1], eager[i % 2])
+                if i == 0:
+                    peak = torch.cuda.max_memory_allocated(dev) - base
+            kept = sum(outputs_equal(h, eager[i % 2]) for i, h in enumerate(held))
+            del held
+            retained = torch.cuda.memory_allocated(dev) - base
+            check(same == JIT_CALLS, f"[jit {label}] differs from eager on "
+                  f"{JIT_CALLS - same} of {JIT_CALLS} calls")
+            check(kept == JIT_CALLS, f"[jit {label}] {JIT_CALLS - kept} held outputs were "
+                  "overwritten by later calls")
+            check(not outputs_equal(*eager), f"[jit {label}] the second input gives the same "
+                  "outputs, so the calls cannot tell them apart")
+            check((fn.graphs, fn.replays) == (1, JIT_CALLS),
+                  f"[jit {label}] {fn.graphs} graphs, {fn.replays} replays")
+            ms = host_ms_in_turn({"eager_ms": module, "jit_ms": fn}, args)
+            print(json.dumps({
+                "phase14": label, "name": name, "equal": f"{same}/{JIT_CALLS}",
+                "held_equal": f"{kept}/{JIT_CALLS}", **ms,
+                "graphs": fn.graphs, "replays": fn.replays,
+                "nodes_per_call": graph_nodes(fn.captures[0].graph),
+                "first_call_s": fn.capture_seconds, "capture_s": fn.captures[0].seconds,
+                "peak_mib": peak / 2 ** 20, "retained_mib": retained / 2 ** 20}))
+            del fn
+
+
 def bound(nbytes: float, ops: float, ops_per_s: float = F32_OPS_PER_S) -> dict:
     """The least time the card could take: the larger of the bytes over the
     memory rate and the operations over the rate of their type (float32
@@ -1296,44 +1452,63 @@ def vo_poses(label, host_g, host_c, k_inv, bars) -> None:
 def run_vo(label, name, overrides, frames_g, frames_c, k_inv, expect_zero, sampson_max,
            pose_bars):
     """Drive the VO device path on the card as the VO loop does: the
-    streaming split with mutual-NN extraction, each new frame extracted once
-    and matched against the cached features of the frame before it, one
-    host copy of the outputs per frame. Checks per-frame launch counts,
-    streaming vs the two-image module, E on the card vs on the CPU, E
-    finite and rank 2, and the pooled median Sampson error of the valid
-    matches under E; prints ms per frame, host syncs (and where each one is
-    made) and launches per frame; no sync may be made in the essential
-    solve. Returns the launch counts summed over the frames and those of
-    the first frame."""
+    streaming split with mutual-NN extraction from the CLI's
+    ``build_vo_matcher`` (each half ``models.jit`` of its module), each new
+    frame extracted once and matched against the cached features of the
+    frame before it, one host copy of the outputs per frame. The launch
+    counts come from the eager modules (a replay ticks no counter), and the
+    jitted frames must equal the eager ones bit for bit. Checks per-frame
+    launch counts, streaming vs the two-image module, E on the card vs on
+    the CPU, E finite and rank 2, and the pooled median Sampson error of
+    the valid matches under E; the poses come from the jitted frames.
+    Prints ms per frame eager and jitted, host syncs of a jitted frame (and
+    where each one is made) and launches per frame; no sync may be made in
+    the essential solve. Returns the launch counts summed over the frames
+    and those of the first frame."""
     import traceback
     import warnings
 
     import torch
     from onnx_image_processing_tpu_torch import models
-    from onnx_image_processing_tpu_torch.cli.visual_odometry import to_host
+    from onnx_image_processing_tpu_torch.cli.visual_odometry import build_vo_matcher, to_host
     from onnx_image_processing_tpu_torch.models.essential_family import essential_from_match
     from onnx_image_processing_tpu_torch.models.extraction import append_mutual_matches
     from onnx_image_processing_tpu_torch.kernels import launch_counts, reset_launch_counts
 
     dev = frames_g[0].device
     kw = dict(max_matches=VO_MAX_MATCHES, match_threshold=VO_MATCH_THRESHOLD, **overrides)
-    extract, match = models.build_streaming(name + "_extraction", device=dev, **kw)
+    jit_extract, jit_match = build_vo_matcher(
+        name, models.get(name).defaults.with_(**kw), True, dev)
+    extract, match = jit_extract.module, jit_match.module
     kinv_g, kinv_c = torch.from_numpy(k_inv).to(dev), torch.from_numpy(k_inv)
 
-    # Pass 1: the counted run, frame by frame.
+    # Pass 1: the counted run, frame by frame, eager.
     totals: dict[str, int] = {}
-    per_frame, host = [], []
+    per_frame, eager = [], []
     ref = extract(frames_g[0])
     for img in frames_g[1:]:
         reset_launch_counts()
         feats = extract(img)
-        host.append(to_host(match(ref, feats, kinv_g)))
+        eager.append(to_host(match(ref, feats, kinv_g)))
         torch.cuda.synchronize()
         counts = launch_counts()
         per_frame.append(counts)
         for k, c in counts.items():
             totals[k] = totals.get(k, 0) + c
         ref = feats
+    # The same frames jitted, as the VO CLI runs them: bit for bit.
+    host, ref = [], jit_extract(frames_g[0])
+    for img in frames_g[1:]:
+        feats = jit_extract(img)
+        host.append(to_host(jit_match(ref, feats, kinv_g)))
+        ref = feats
+    same = sum(all(np.array_equal(a, b) for a, b in zip(h, e)) for h, e in zip(host, eager))
+    print(f"[{label}] jitted frames (graphs: extract {jit_extract.graphs}, match "
+          f"{jit_match.graphs}; first-call s {jit_extract.capture_seconds:.3f} + "
+          f"{jit_match.capture_seconds:.3f}) equal to eager bit for bit: {same}/{len(host)}")
+    check(same == len(host), f"[{label}] jitted frames differ from eager")
+    check(jit_match.replays == len(host) and jit_extract.graphs == jit_match.graphs == 1,
+          f"[{label}] the jitted frames did not replay one graph each")
     # The same frames through the same path on the CPU, for the poses.
     extract_c, match_c = models.build_streaming(name + "_extraction", device="cpu", **kw)
     host_c, ref = [], extract_c(frames_c[0])
@@ -1424,21 +1599,22 @@ def run_vo(label, name, overrides, frames_g, frames_c, k_inv, expect_zero, samps
             if swaps == 0:
                 check(gap <= E_ATOL, f"[{label}] E on the card differs from the CPU's by {gap}")
 
-    # Pass 2: ms per frame, host clock around synchronized stages.
-    ext_ms, match_ms, pair_ms = [], [], []
-    ref = extract(frames_g[0])
+    # Pass 2: ms per frame, host clock around synchronized stages, eager
+    # and jitted frame by frame in turn.
+    ms = {k: ([], [], []) for k in ("eager", "jit")}
+    refs = {"eager": extract(frames_g[0]), "jit": jit_extract(frames_g[0])}
     for img in frames_g[1:]:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        feats = extract(img)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        to_host(match(ref, feats, kinv_g))
-        t2 = time.perf_counter()
-        ext_ms.append((t1 - t0) * 1e3)
-        match_ms.append((t2 - t1) * 1e3)
-        pair_ms.append((t2 - t0) * 1e3)
-        ref = feats
+        for kind, (ext, mat) in (("eager", (extract, match)), ("jit", (jit_extract, jit_match))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            feats = ext(img)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            to_host(mat(refs[kind], feats, kinv_g))
+            t2 = time.perf_counter()
+            for lst, v in zip(ms[kind], (t1 - t0, t2 - t1, t2 - t0)):
+                lst.append(v * 1e3)
+            refs[kind] = feats
     # Host syncs of one frame: PyTorch warns at each synchronizing call; the
     # innermost frame of the port (or of this script) names the call.
     syncs = []
@@ -1455,16 +1631,19 @@ def run_vo(label, name, overrides, frames_g, frames_c, k_inv, expect_zero, samps
         warnings.simplefilter("always")
         warnings.showwarning = record
         torch.cuda.set_sync_debug_mode("warn")
-        to_host(match(ref, extract(frames_g[1]), kinv_g))
+        to_host(jit_match(refs["jit"], jit_extract(frames_g[1]), kinv_g))
         torch.cuda.set_sync_debug_mode(0)
-    print(f"[{label}] ms per frame (median of {len(pair_ms)}, host clock around synchronized "
-          f"calls): extract {np.median(ext_ms):.3f}, match + host copy "
-          f"{np.median(match_ms):.3f}, frame {np.median(pair_ms):.3f}; host syncs per "
-          f"frame {len(syncs)}")
+    for kind, (ext_ms, match_ms, pair_ms) in ms.items():
+        print(f"[{label}] {kind} ms per frame (median of {len(pair_ms)}, host clock around "
+              f"synchronized calls): extract {np.median(ext_ms):.3f}, match + host copy "
+              f"{np.median(match_ms):.3f}, frame {np.median(pair_ms):.3f}")
+    print(f"[{label}] host syncs per jitted frame {len(syncs)}")
     for site in sorted(set(syncs)):
         print(f"[{label}]   sync x{syncs.count(site)} at {site}")
     in_solve = [x for x in syncs if x.startswith(("essential_matrix.py", "essential_solve.py"))]
     check(not in_solve, f"[{label}] host syncs in the essential solve: {in_solve}")
+    check(len(syncs) == 1, f"[{label}] {len(syncs)} host syncs in a jitted frame, expected "
+          "the host copy alone")
     return totals, per_frame[0]
 
 
@@ -2141,6 +2320,11 @@ def main() -> None:
     t13 = time.perf_counter()
     run_chain(g1, g2, paths)
     print(f"phase 13: {time.perf_counter() - t13:.2f} s")
+
+    # ---- phase 14: every path through models.jit, the port's jax.jit --------
+    t14 = time.perf_counter()
+    run_jit(g1, g2)
+    print(f"phase 14: {time.perf_counter() - t14:.2f} s")
 
     sources = {"select_frontend": ("select_frontend.cu", "kernels/select_frontend.py:329", "flagship"),
                "sparse_sampler": ("sparse_sampler.cu", "kernels/sparse_sampler.py:411", "flagship"),

@@ -4,8 +4,10 @@ The port's counterpart of ``onnx_image_processing_tpu/cli/common.py``.
 ``--device {cuda,cpu}`` takes the place of ``--platform``; the JAX compile
 cache has no counterpart here. ``--timing`` keeps the JAX package's two
 protocols. ``host`` is the reference's warm-up and timed loop on the host
-clock. ``chain`` is the differential chain: whole calls chained by data at
-two lengths, n and 3n, and ms per frame = (T(3n) - T(n)) / (2n), which
+clock, of the call the CLI makes: ``models.jit`` of the pipeline, one CUDA
+graph per call on the card (``core/jit.py``). ``chain`` is the differential
+chain: whole calls chained by data at two lengths, n and 3n, and ms per
+frame = (T(3n) - T(n)) / (2n), which
 cancels every fixed cost of a run. JAX compiles the chain into one
 ``lax.scan``; the port captures each length on the card as one CUDA graph,
 so a replay launches the chain's kernels without the host's per-launch
@@ -21,6 +23,8 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+
+from ..core.jit import Jitted, capture
 
 
 def add_device_arg(parser: argparse.ArgumentParser) -> None:
@@ -112,40 +116,6 @@ def _path_name(fn) -> str:
 
 
 @dataclass(frozen=True)
-class Captured:
-    graph: torch.cuda.CUDAGraph
-    out: object      # the captured call's outputs, refreshed by each replay
-    seconds: float   # capture and instantiation on the host clock
-
-
-def capture(body, device: torch.device, keep_graph: bool = False, warm=None) -> Captured:
-    """``body()`` captured in a CUDA graph on ``device``, after two eager
-    calls of ``warm`` (default ``body``) on a side stream, which make
-    the kernels' per-device constants, plans and counters outside the
-    capture; ``warm`` must run what ``body`` runs, at its shapes. ``keep_graph``
-    keeps the captured graph beside its executable
-    (``graph.raw_cuda_graph()``). A failing capture raises: there is no
-    eager stand-in."""
-    device = torch.device(device)
-    with torch.cuda.device(device):
-        side = torch.cuda.Stream(device)
-        side.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(side):
-            for _ in range(2):
-                (warm or body)()
-        torch.cuda.current_stream(device).wait_stream(side)
-        torch.cuda.synchronize(device)
-        graph = torch.cuda.CUDAGraph(keep_graph=keep_graph)
-        t0 = time.perf_counter()
-        with torch.cuda.graph(graph):
-            out = body()
-        if keep_graph:
-            graph.instantiate()
-        seconds = time.perf_counter() - t0
-    return Captured(graph, out, seconds)
-
-
-@dataclass(frozen=True)
 class ChainTimes:
     """What :func:`chain_times` measured. ``peak_bytes`` is the chain's own
     device memory at its peak (both graphs over what was allocated before
@@ -218,9 +188,12 @@ def benchmark_chain(fn, args, n: int = 30, reps: int = 3) -> float:
 
 def run_benchmark(fn, args, timing: str) -> float:
     """Print the benchmark line of ``timing`` ("host" or "chain"), labeled
-    with its protocol; returns its ms per frame."""
+    with its protocol; returns its ms per frame. ``host`` times ``fn`` as
+    the caller calls it (a ``core.jit.Jitted`` replays its graph,
+    as the JAX line times a jitted call); ``chain`` captures its own chain
+    of the eager module."""
     if timing == "chain":
-        ms = benchmark_chain(fn, args)
+        ms = benchmark_chain(fn.module if isinstance(fn, Jitted) else fn, args)
         print(f"Elapsed (device, chain protocol): {ms:.3f} ms/frame "
               f"({1e3 / ms:.1f} fps)")
         return ms

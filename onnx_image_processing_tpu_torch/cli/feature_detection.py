@@ -7,16 +7,18 @@ flags (``--device {cuda,cpu}`` in place of ``--platform``):
 run a detector pipeline on the device, select keypoints on the host (NMS,
 threshold, top-k, sub-pixel parabola refinement) and draw them. The device
 part is :func:`detect`, which takes and returns arrays; image reading and
-drawing (PIL) stay in :func:`main`.
+drawing (PIL) stay in :func:`main`. As the JAX CLI calls its jitted
+``build``, :func:`main` calls ``models.jit(models.build(...))``: one CUDA
+graph per call on the card.
 """
 
 from __future__ import annotations
 
 import argparse
+from typing import Callable
 
 import numpy as np
 import torch
-from torch import nn
 
 from .. import models
 from ..utils import select_keypoints, visualize_keypoints
@@ -74,9 +76,10 @@ def detector_overrides(args) -> dict:
     return {k: getattr(args, k) for k in _DETECTOR_FLAGS if getattr(args, k) is not None}
 
 
-def detect(fn: nn.Module, image: np.ndarray) -> np.ndarray:
+def detect(fn: Callable, image: np.ndarray) -> np.ndarray:
     """The detector ``fn``'s score map (its first output) for a (1, 1, H, W)
-    float32 image, computed on ``fn``'s device, as numpy."""
+    float32 image, computed on ``fn``'s device (a module of
+    ``models.build`` or its ``models.jit``), as numpy."""
     with torch.inference_mode():
         out = fn(torch.from_numpy(image).to(fn.device))
     scores = out[0] if isinstance(out, (tuple, list)) else out
@@ -87,7 +90,7 @@ def main(argv=None):
     args = parse_args(argv)
     device = select_device(args.device)
     arr, rgb = load_image(args.image, args.height, args.width)
-    fn = models.build(args.model, device=device, **detector_overrides(args))
+    fn = models.jit(models.build(args.model, device=device, **detector_overrides(args)))
     scores = detect(fn, arr)
     if args.benchmark:
         with torch.inference_mode():

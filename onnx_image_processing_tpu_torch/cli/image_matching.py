@@ -7,15 +7,17 @@ flags (``--device {cuda,cpu}`` in place of ``--platform``):
 run a matcher pipeline on the device, extract mutual-NN matches on the host
 and draw them side by side. The device part is :func:`match`, which takes
 and returns arrays; image reading and drawing (PIL) stay in :func:`main`.
+As the JAX CLI calls its jitted ``build``, :func:`main` calls
+``models.jit(models.build(...))``: one CUDA graph per call on the card.
 """
 
 from __future__ import annotations
 
 import argparse
+from typing import Callable
 
 import numpy as np
 import torch
-from torch import nn
 
 from .. import models
 from ..utils import extract_matches, visualize_matches
@@ -47,8 +49,9 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def match(fn: nn.Module, image1: np.ndarray, image2: np.ndarray):
-    """The matcher ``fn``'s keypoints1, keypoints2 and P for two (1, 1, H, W)
+def match(fn: Callable, image1: np.ndarray, image2: np.ndarray):
+    """The matcher ``fn``'s (a module of ``models.build`` or its
+    ``models.jit``) keypoints1, keypoints2 and P for two (1, 1, H, W)
     float32 images, computed on ``fn``'s device, as numpy."""
     with torch.inference_mode():
         out = fn(torch.from_numpy(image1).to(fn.device),
@@ -67,7 +70,7 @@ def main(argv=None):
         overrides["max_keypoints"] = args.max_keypoints
     if args.topk_mode is not None:
         overrides["topk_mode"] = args.topk_mode
-    fn = models.build(args.model, device=device, **overrides)
+    fn = models.jit(models.build(args.model, device=device, **overrides))
     k1, k2, p = match(fn, arr1, arr2)
     if not args.no_benchmark:
         with torch.inference_mode():

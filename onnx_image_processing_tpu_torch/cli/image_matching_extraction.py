@@ -7,16 +7,18 @@ Port of ``onnx_image_processing_tpu/cli/image_matching_extraction.py``, with
 the same flags (``--device {cuda,cpu}`` in place of ``--platform``): the
 pipeline returns fixed-size matched pairs; the host keeps the valid ones
 and draws them. The device part is :func:`match`, which takes and returns
-arrays; image reading and drawing (PIL) stay in :func:`main`.
+arrays; image reading and drawing (PIL) stay in :func:`main`. As the JAX
+CLI calls its jitted ``build``, :func:`main` calls
+``models.jit(models.build(...))``: one CUDA graph per call on the card.
 """
 
 from __future__ import annotations
 
 import argparse
+from typing import Callable
 
 import numpy as np
 import torch
-from torch import nn
 
 from .. import models
 from ..utils import visualize_matches
@@ -49,11 +51,11 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def match(fn: nn.Module, image1: np.ndarray, image2: np.ndarray):
-    """The valid matches of the extraction pipeline ``fn`` for two
-    (1, 1, H, W) float32 images, computed on ``fn``'s device: matched
-    keypoints in image 1 and image 2, (N, 2) each, and their scores (N,),
-    as numpy."""
+def match(fn: Callable, image1: np.ndarray, image2: np.ndarray):
+    """The valid matches of the extraction pipeline ``fn`` (a module of
+    ``models.build`` or its ``models.jit``) for two (1, 1, H, W) float32
+    images, computed on ``fn``'s device: matched keypoints in image 1 and
+    image 2, (N, 2) each, and their scores (N,), as numpy."""
     with torch.inference_mode():
         out = fn(torch.from_numpy(image1).to(fn.device),
                  torch.from_numpy(image2).to(fn.device))
@@ -75,7 +77,7 @@ def main(argv=None):
         overrides["match_threshold"] = args.match_threshold
     if args.topk_mode is not None:
         overrides["topk_mode"] = args.topk_mode
-    fn = models.build(args.model, device=device, **overrides)
+    fn = models.jit(models.build(args.model, device=device, **overrides))
     mk1, mk2, scores = match(fn, arr1, arr2)
     if not args.no_benchmark:
         with torch.inference_mode():

@@ -1,5 +1,7 @@
 """Core contracts of the port: the pipeline config (its own copy of the JAX
-package's, ``config.py``) and the float32 rule for work on the card.
+package's, ``config.py``), the float32 rule for work on the card and
+``jit``, whole calls as cached CUDA graphs (``jit.py``, the port's
+``jax.jit``).
 
 Data contract, as in the JAX package: images are (B, 1, H, W) float32 in
 [0, 255]; keypoints (B, K, 2) float32 (y, x) with (-1, -1) padding; the
@@ -13,9 +15,10 @@ import contextlib
 import torch
 
 from .config import AKAZEConfig, CameraConfig, DoGConfig, FASTConfig, MatcherConfig
+from .jit import Jitted, jit
 
 __all__ = ["AKAZEConfig", "CameraConfig", "DoGConfig", "FASTConfig", "MatcherConfig",
-           "full_fp32"]
+           "Jitted", "full_fp32", "jit"]
 
 
 @contextlib.contextmanager

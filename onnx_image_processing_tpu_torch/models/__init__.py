@@ -1,6 +1,9 @@
 """Pipelines of the port, their registry, their streaming split and their
-serialized artifacts (``torch.export``)."""
+serialized artifacts (``torch.export``). ``jit(build(...))`` is what the
+JAX package's ``build`` returns: the pipeline as cached whole-call CUDA
+graphs (``core/jit.py``)."""
 
+from ..core.jit import Jitted, jit
 from .registry import (VOXEL_EXPORT_POINTS, Batched, PipelineSpec, Standalone,
                        TableHead, arg_specs, build, build_batched, compile_model, get,
                        names, resolve_config)
@@ -23,8 +26,8 @@ from .serialize import (POLYMORPHIC_EXPORTS, artifact_path, export_model,
                         export_model_polymorphic, export_streaming, export_to_dir,
                         load_exported, save_exported)
 
-__all__ = ["VOXEL_EXPORT_POINTS", "Batched", "PipelineSpec", "Standalone", "TableHead",
-           "arg_specs", "build", "build_batched", "compile_model", "get", "names",
+__all__ = ["Jitted", "jit", "VOXEL_EXPORT_POINTS", "Batched", "PipelineSpec", "Standalone",
+           "TableHead", "arg_specs", "build", "build_batched", "compile_model", "get", "names",
            "resolve_config",
            "SparseMatcher", "ShiTomasiAngleSparseBADSinkhorn", "ShiTomasiSparseBADSinkhorn",
            "ShiTomasiAngleSparseBADSinkhornWithFilters", "ShiTomasiBADSinkhorn",

@@ -96,7 +96,11 @@ def build(name: str, cfg: MatcherConfig | None = None, *,
     ``cfg`` (else the registered defaults) with flat ``overrides`` folded
     in, as in the JAX registry. Call it with inputs on the same device:
     (B, 1, H, W) float32 images, and a (3, 3) ``k_inv`` where the spec
-    ``takes_k_inv``.
+    ``takes_k_inv``. What the JAX registry's ``build`` returns, a
+    ``jax.jit`` executable, is ``models.jit`` of this module: one CUDA
+    graph per input signature on the card (``core/jit.py``). The module
+    itself stays eager, for export, the chain protocol and the launch
+    counters.
     """
     spec = get(name)
     module = spec.factory(resolve_config(spec, cfg, **overrides)).to(torch.device(device)).eval()
@@ -184,7 +188,8 @@ def build_batched(name: str, cfg: MatcherConfig | None = None, chunk: int | None
     pairs runs as sequential sub-batches. The JAX package's vmap over
     single pairs, and its default chunk of 6, answer layouts of XLA on a
     TPU and are not copied: the default here is None (one call).
-    Two-image pipelines and their ``_extraction`` forms only.
+    Two-image pipelines and their ``_extraction`` forms only. The served
+    form, JAX's jitted ``build_batched``, is ``models.jit`` of this module.
     """
     spec = get(name)
     if spec.takes_k_inv:

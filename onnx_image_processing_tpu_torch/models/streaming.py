@@ -86,11 +86,13 @@ def build_streaming(name: str, cfg: MatcherConfig | None = None, *,
     """The streaming form of ``models.build(name)``: an (extract, match)
     pair of eval-mode modules on ``device`` that share one matcher. A
     ``*_extraction`` name appends the mutual-NN match extraction to
-    ``match``'s outputs.
+    ``match``'s outputs. JAX's ``build_streaming`` returns the two halves
+    jitted; here that is ``models.jit`` of each, and ``match`` then takes
+    the feature tuples as its graph's inputs.
 
     Sequential serving (what the VO CLI does by default)::
 
-        extract, match = models.build_streaming(name, device="cuda")
+        extract, match = map(models.jit, models.build_streaming(name, device="cuda"))
         feats_ref = extract(frame0)
         for frame in frames[1:]:
             feats = extract(frame)
@@ -106,4 +108,10 @@ def build_streaming(name: str, cfg: MatcherConfig | None = None, *,
             f"no streaming split for {name!r}; available: {streaming_names()} "
             "(+ their *_extraction variants)")
     matcher = build(base, cfg, device=device, **overrides)
-    return StreamingExtract(matcher).eval(), StreamingMatch(matcher, with_extraction).eval()
+    extract = StreamingExtract(matcher).eval()
+    match = StreamingMatch(matcher, with_extraction).eval()
+    # The names of the JAX package's two jitted halves.
+    extract.pipeline_name = f"{base}_streaming_extract"
+    match.pipeline_name = f"{name}_streaming_match"
+    extract.capture_blocker = match.capture_blocker = matcher.capture_blocker
+    return extract, match

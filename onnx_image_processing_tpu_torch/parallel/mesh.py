@@ -15,7 +15,10 @@ device); ``ShardedTensor.gather(device)`` concatenates them.
 
 Each CUDA shard runs with its device made current, and every kernel op
 launches on the device of its input tensor (``kernels/*.py``), so a shard
-on a second card runs on that card's context and stream.
+on a second card runs on that card's context and stream. As the JAX
+package jits the sharded function, ``shard_batch`` calls each device's
+replica through ``core.jit``: one CUDA graph per device and per shard
+signature, captured with that device current.
 """
 
 from __future__ import annotations
@@ -28,6 +31,8 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 from torch import nn
+
+from ..core.jit import Jitted, _leaves, _unflatten, jit
 
 
 @dataclass(frozen=True)
@@ -123,33 +128,22 @@ def device_put_batch(x, mesh: Mesh, axis_name: str = "batch") -> ShardedTensor:
     return _split(x, batch_sharding(mesh, axis_name))
 
 
-def _leaves(tree) -> list:
-    if isinstance(tree, (tuple, list)):
-        return [leaf for x in tree for leaf in _leaves(x)]
-    return [tree]
-
-
-def _unflatten(tree, leaves):
-    """``tree``'s structure with its leaves taken in order from the iterator."""
-    if isinstance(tree, (tuple, list)):
-        return type(tree)(_unflatten(x, leaves) for x in tree)
-    return next(leaves)
-
-
 def _on(device: torch.device):
     """``device`` made current for the enclosed launches (CUDA only)."""
     return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
 
 
-def _replicas(fn: Callable, devices: tuple[torch.device, ...]) -> dict:
-    """``fn`` for each distinct device: a module is copied to each device it
-    does not lie on; a plain function is called as it is."""
+def _replicas(fn: Callable, devices: tuple[torch.device, ...]) -> dict[torch.device, Jitted]:
+    """``jit(fn)`` for each distinct device: a module is copied to each
+    device it does not lie on (the copy starts with no graph); a plain
+    function is shared, its graphs cached per device."""
+    shared = jit(fn)
     out = {}
     for dev in dict.fromkeys(devices):
-        if isinstance(fn, nn.Module) and getattr(fn, "device", None) != dev:
-            out[dev] = copy.deepcopy(fn).to(dev)
+        if isinstance(shared.module, nn.Module) and getattr(shared.module, "device", None) != dev:
+            out[dev] = copy.deepcopy(shared).to(dev)
         else:
-            out[dev] = fn
+            out[dev] = shared
     return out
 
 
@@ -167,14 +161,18 @@ def shard_batch(fn: Callable, mesh: Mesh, axis_name: str = "batch",
     device's shard, with the device current: all shards are enqueued
     before any result is read, and no value crosses between devices, so
     the outputs equal the unsharded call's wherever ``fn`` is batch-
-    independent. An ``nn.Module`` is copied once to each mesh device it does
-    not lie on; a plain function must accept tensors on every mesh device.
+    independent. An ``nn.Module`` (or the module of a ``Jitted``) is copied
+    once to each mesh device it does not lie on; a plain function must
+    accept tensors on every mesh device. Each device's replica is
+    ``core.jit`` of it: on the card a CUDA graph per shard signature,
+    captured on that device's first call; the returned function's
+    ``replicas`` maps each device to its ``Jitted``.
 
     ``method="jit"`` is kept for functions that reduce across the batch
     (JAX's SPMD composition): ``fn`` runs once on the whole batch gathered
     on the first device and its outputs are split again. That costs a copy
     of every other shard to the first device and back, and one device does
-    all the work.
+    all the work; its replica is the first device's.
     """
     if method not in ("shard_map", "jit"):
         raise ValueError(f"unknown shard_batch method {method!r} "
@@ -199,4 +197,5 @@ def shard_batch(fn: Callable, mesh: Mesh, axis_name: str = "batch",
         merged = [ShardedTensor(tuple(parts), sharding) for parts in zip(*per_device)]
         return _unflatten(outs[0], iter(merged))
 
+    wrapped.replicas = replicas
     return wrapped

@@ -179,9 +179,13 @@ def stream_map_chunked(fn_batched, pairs: Iterable, chunk: int, depth: int = 2) 
     in :func:`stream_map`.
 
     Args:
-        fn_batched: a module over ((C, 1, H, W), (C, 1, H, W)) batches on
-            the device its ``device`` names, e.g.
-            ``models.build_batched(name, device=...)``.
+        fn_batched: a callable over ((C, 1, H, W), (C, 1, H, W)) batches
+            on the device its ``device`` names. The served form is
+            ``models.jit(models.build_batched(name, device=...))``, as the
+            JAX package serves its jitted ``build_batched``: one CUDA graph
+            per chunk shape, replayed on the stream the results are
+            fetched on (its outputs are fresh clones, enqueued before the
+            fetch's event). ``models.build_batched(...)`` alone runs eager.
         pairs: iterable of (img1, img2) host arrays, (1, 1, H, W) each.
         chunk: pairs per call. The final short chunk is padded to ``chunk``
             by repeating its last pair, and the padding's results dropped.

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from onnx_image_processing_tpu_torch import models
+from onnx_image_processing_tpu_torch.core.jit import WARMUP_CALLS
 from onnx_image_processing_tpu_torch.parallel import (batch_sharding, device_put_batch,
                                                       make_mesh, shard_batch)
 from onnx_image_processing_tpu_torch.parallel.mesh import ShardedTensor
@@ -124,7 +125,8 @@ def test_make_mesh_needs_cuda_without_devices(monkeypatch):
 def test_shard_batch_over_gpus():
     """The flagship sharded over every card (two or more) from a module on
     cuda:0 (copied to the others) equals the unsharded call on cuda:0, and
-    each card ran its shard's kernels. A kernel op given a tensor on the
+    each card ran its shard's kernels: its replica's first call, two eager
+    warm-ups and the captured call, then one replay. A kernel op given a tensor on the
     last card while cuda:0 is current launches on the last card (each op
     makes its tensor's device current)."""
     if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
@@ -138,11 +140,14 @@ def test_shard_batch_over_gpus():
     fn = models.build(FLAGSHIP, device="cuda:0", max_keypoints=256)
     i1, i2 = _pairs(2, b=2 * n, h=240, w=320)
     reset_launch_counts()
-    out = shard_batch(fn, mesh)(i1, i2)
+    sharded = shard_batch(fn, mesh)
+    out = sharded(i1, i2)
     for d in mesh.devices:
         torch.cuda.synchronize(d)
     counts = launch_counts()
-    assert counts["select_frontend"] == n and counts["sinkhorn"] == n, counts
+    calls = (WARMUP_CALLS + 1) * n
+    assert counts["select_frontend"] == calls and counts["sinkhorn"] == calls, counts
+    assert [(r.graphs, r.replays) for r in sharded.replicas.values()] == [(1, 1)] * n
     assert [p.device for p in out[2].shards] == list(mesh.devices)
     local = fn(torch.from_numpy(i1).cuda(0), torch.from_numpy(i2).cuda(0))
     for s, t in zip(out, local):
