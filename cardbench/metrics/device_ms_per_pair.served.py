@@ -1,0 +1,9 @@
+"""``device_ms_per_pair``, read in the served cell, where it moves ``pairs_per_s.served``."""
+
+from cardbench.bench import reader
+
+MOVES = "pairs_per_s.served"
+
+
+def read(run):
+    return reader("device_ms_per_pair")(run)
