@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from .. import models
+from ..core import trace
 from ..utils import visualize_matches
 from .common import (add_device_arg, add_timing_arg, load_image, run_benchmark,
                      select_device)
@@ -55,11 +56,20 @@ def match(fn: Callable, image1: np.ndarray, image2: np.ndarray):
     """The valid matches of the extraction pipeline ``fn`` (a module of
     ``models.build`` or its ``models.jit``) for two (1, 1, H, W) float32
     images, computed on ``fn``'s device: matched keypoints in image 1 and
-    image 2, (N, 2) each, and their scores (N,), as numpy."""
+    image 2, (N, 2) each, and their scores (N,), as numpy. Spans
+    (``core/trace.py``): ``io.upload``, ``io.fetch``, and an ``io.sync``
+    count per output read."""
     with torch.inference_mode():
-        out = fn(torch.from_numpy(image1).to(fn.device),
-                 torch.from_numpy(image2).to(fn.device))
-    mk1, mk2, scores, valid = (t.cpu().numpy() for t in out[:4])
+        with trace.span("io.upload"):
+            img1 = torch.from_numpy(image1).to(fn.device)
+            img2 = torch.from_numpy(image2).to(fn.device)
+        out = fn(img1, img2)
+    with trace.span("io.fetch"):
+        host = []
+        for t in out[:4]:
+            trace.count("io.sync")
+            host.append(t.cpu().numpy())
+    mk1, mk2, scores, valid = host
     keep = valid[0]
     return mk1[0][keep], mk2[0][keep], scores[0][keep]
 

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from .. import models
+from ..core import trace
 from ..vo import (CameraIntrinsics, Trajectory, create_camera, estimate_pose_ransac,
                   recover_pose)
 from .common import add_device_arg, load_image_from_array, select_device
@@ -93,8 +94,11 @@ class VideoReader:
 def to_host(outputs) -> list[np.ndarray]:
     """The outputs in ONE device-to-host copy: packed as float32 (exact for
     the f32 coordinates, scores and E, and for bool masks), split and cast
-    back to bool where they were."""
-    flat = torch.cat([t.reshape(-1).to(torch.float32) for t in outputs]).cpu().numpy()
+    back to bool where they were. Spans (``core/trace.py``): ``io.fetch``
+    and one ``io.sync`` count."""
+    with trace.span("io.fetch"):
+        trace.count("io.sync")
+        flat = torch.cat([t.reshape(-1).to(torch.float32) for t in outputs]).cpu().numpy()
     host, i = [], 0
     for t in outputs:
         a = flat[i:i + t.numel()].reshape(tuple(t.shape))

@@ -29,6 +29,8 @@ from dataclasses import dataclass
 
 import torch
 
+from . import trace
+
 __all__ = ["Captured", "Jitted", "capture", "jit", "signature"]
 
 # Eager calls of a body before its capture (see :func:`capture`).
@@ -120,10 +122,16 @@ class Jitted:
 
     ``copy.deepcopy`` copies the module and starts with no graph; ``to()``
     moves the module and drops every graph, so no graph reaches another
-    device or outlives the memory it reads."""
+    device or outlives the memory it reads.
+
+    Spans (``core/trace.py``): ``jit.call`` around each call, with
+    ``jit.copy_in``, ``jit.replay`` and ``jit.clone`` inside it on the card;
+    ``jit.capture`` around each capture, recorded even while recording is
+    off."""
 
     def __init__(self, module):
         self.module = module
+        self._pipeline = _name(module)
         self._graphs: dict[tuple, _Graph] = {}
         self.replays = 0
         self.capture_seconds = 0.0
@@ -151,29 +159,34 @@ class Jitted:
         return [g.captured for g in self._graphs.values()]
 
     def __call__(self, *args):
-        leaves = _leaves(args)
-        key = signature(args)
-        devices = {x.device for x in leaves}
-        if len(devices) != 1:
-            raise ValueError(f"jit: {_name(self.module)} got inputs on "
-                             f"{sorted(map(str, devices)) or 'no device'}; "
-                             "they must lie on one device")
-        (dev,) = devices
-        if dev.type != "cuda":
-            return self.module(*args)
-        with torch.no_grad(), torch.cuda.device(dev):
-            entry = self._graphs.get(key)
-            if entry is None:
-                entry = self._graphs[key] = self._capture(args, leaves, dev)
-            for buf, x in zip(entry.inputs, leaves):
-                buf.copy_(x)
-            entry.captured.graph.replay()
-            self.replays += 1
-            return _unflatten(entry.captured.out,
-                              iter([t.clone() for t in _leaves(entry.captured.out)]))
+        with trace.span("jit.call", pipeline=self._pipeline):
+            leaves = _leaves(args)
+            key = signature(args)
+            devices = {x.device for x in leaves}
+            if len(devices) != 1:
+                raise ValueError(f"jit: {self._pipeline} got inputs on "
+                                 f"{sorted(map(str, devices)) or 'no device'}; "
+                                 "they must lie on one device")
+            (dev,) = devices
+            if dev.type != "cuda":
+                return self.module(*args)
+            with torch.no_grad(), torch.cuda.device(dev):
+                entry = self._graphs.get(key)
+                if entry is None:
+                    with trace.kept("jit.capture", pipeline=self._pipeline, signature=key):
+                        entry = self._graphs[key] = self._capture(args, leaves, dev)
+                with trace.span("jit.copy_in"):
+                    for buf, x in zip(entry.inputs, leaves):
+                        buf.copy_(x)
+                with trace.span("jit.replay"):
+                    entry.captured.graph.replay()
+                self.replays += 1
+                with trace.span("jit.clone"):
+                    outs = [t.clone() for t in _leaves(entry.captured.out)]
+                return _unflatten(entry.captured.out, iter(outs))
 
     def _capture(self, args, leaves, dev) -> _Graph:
-        name = _name(self.module)
+        name = self._pipeline
         blocker = getattr(self.module, "capture_blocker", None)
         if blocker:
             raise ValueError(f"{name} cannot be captured in a CUDA graph: {blocker}")

@@ -35,6 +35,8 @@ from typing import Callable, Iterable, Iterator
 import numpy as np
 import torch
 
+from ..core import trace
+
 
 def _tree_map(fn, tree, *rest):
     """``fn`` over the leaves of ``tree`` (and the matching leaves of the
@@ -94,7 +96,8 @@ def chunk_batch(fn: Callable, chunk: int = 8) -> Callable:
 def _fetch(out):
     """Start the host copy of ``out``: each CUDA tensor goes, without
     blocking, into a pinned buffer of this step, and one CUDA event is
-    recorded after the copies. Returns (host tree, event or None)."""
+    recorded after the copies. Returns (host tree, event or None). Span
+    ``serve.fetch``."""
     devices = []
 
     def start(x):
@@ -108,19 +111,22 @@ def _fetch(out):
         devices.append(x.device)
         return buf
 
-    tree = _tree_map(start, out)
-    if not devices:
-        return tree, None
-    event = torch.cuda.Event()
-    event.record(torch.cuda.current_stream(devices[0]))
-    return tree, event
+    with trace.span("serve.fetch"):
+        tree = _tree_map(start, out)
+        if not devices:
+            return tree, None
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(devices[0]))
+        return tree, event
 
 
 def _drain(step):
-    """Wait for a step's copies, then its results as numpy arrays."""
+    """Wait for a step's copies, then its results as numpy arrays. Span
+    ``serve.wait`` around the wait."""
     tree, event = step
-    if event is not None:
-        event.synchronize()
+    with trace.span("serve.wait"):
+        if event is not None:
+            event.synchronize()
     return _tree_map(lambda x: x.numpy() if isinstance(x, torch.Tensor) else x, tree)
 
 
@@ -175,8 +181,8 @@ def stream_map_chunked(fn_batched, pairs: Iterable, chunk: int, depth: int = 2) 
     per call.
 
     Each chunk is stacked on the host, one array per side (pinned for the
-    card), uploaded once per side, run as one batched call and fetched as
-    in :func:`stream_map`.
+    card), uploaded once per side (span ``serve.upload`` around both), run
+    as one batched call and fetched as in :func:`stream_map`.
 
     Args:
         fn_batched: a callable over ((C, 1, H, W), (C, 1, H, W)) batches
@@ -215,8 +221,9 @@ def _chunked(fn_batched, pairs, chunk, depth, dev):
             yield buf + [buf[-1]] * (chunk - n), n
 
     def run(buf, n):
-        img1 = _upload([p[0] for p in buf], dev)
-        img2 = _upload([p[1] for p in buf], dev)
+        with trace.span("serve.upload"):
+            img1 = _upload([p[0] for p in buf], dev)
+            img2 = _upload([p[1] for p in buf], dev)
         return fn_batched(img1, img2), n
 
     for out, n in _stream(run, chunks(), depth):

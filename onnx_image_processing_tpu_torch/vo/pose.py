@@ -17,6 +17,8 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
+from ..core import trace
+
 try:
     import cv2
 except ImportError:  # pragma: no cover - cv2 is present in this image
@@ -183,6 +185,9 @@ def recover_pose(
       CORRECT points from voting and the decision is made by noise. The
       explicit-threshold overload with a large bound restores the vote.
 
+    Span (``core/trace.py``): ``pose.chirality`` around the four
+    candidates' triangulation and chirality test.
+
     Returns (R (3, 3) | None, t (3, 1) | None, inlier_mask (N,) bool).
     """
     n = len(keypoints1)
@@ -212,8 +217,9 @@ def recover_pose(
     n1, n2 = (pts1 - centre) / focal, (pts2 - centre) / focal
     r1, r2, t = decompose_essential(e)
     candidates = ((r1, t), (r2, t), (r1, -t), (r2, -t))
-    masks = [_chirality(np.hstack([r, tc[:, None]]), n1, n2, distance_thresh) & vote_mask
-             for r, tc in candidates]
+    with trace.span("pose.chirality"):
+        masks = [_chirality(np.hstack([r, tc[:, None]]), n1, n2, distance_thresh) & vote_mask
+                 for r, tc in candidates]
     best = int(np.argmax([m.sum() for m in masks]))   # the first of the most votes
     num = int(masks[best].sum())
     if num < 5:

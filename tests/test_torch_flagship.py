@@ -115,7 +115,7 @@ def test_port_imports_no_jax():
             "onnx_image_processing_tpu_torch.kernels.sinkhorn_kernel, "
             "onnx_image_processing_tpu_torch.kernels.detect_frontend, "
             "onnx_image_processing_tpu_torch.kernels.akaze_ladder, "
-            "onnx_image_processing_tpu_torch.tools.profile_paths, "
+            "onnx_image_processing_tpu_torch.core.trace, "
             "onnx_image_processing_tpu_torch.geometry, "
             "onnx_image_processing_tpu_torch.models.streaming, "
             "onnx_image_processing_tpu_torch.cli.visual_odometry, "
