@@ -926,8 +926,9 @@ def run_serving(dev, paths: dict, results: dict) -> None:
 # Phase 11: the exported paths, each path's kernels (launch counters) and
 # the op nodes its graph must hold.
 EXPORT_PATHS = (
-    ("flagship", FLAGSHIP + "_extraction", {}, ("select_frontend", "sparse_sampler", "sinkhorn"),
-     ("nms_select_blocks", "box_sample", "sinkhorn_core")),
+    ("flagship", FLAGSHIP + "_extraction", {},
+     ("score_moments", "select_frontend", "sparse_sampler", "sinkhorn"),
+     ("score_moments", "nms_select_blocks", "box_sample", "sinkhorn_core")),
     ("fused", FLAGSHIP + "_extraction", {"fused_detect": True},
      ("detect_frontend", "sparse_sampler", "sinkhorn"),
      ("detect_select", "box_sample", "sinkhorn_core")),
@@ -1082,7 +1083,8 @@ def run_mesh(dev, paths: dict) -> None:
     check(counts == {k: calls * c for k, c in counts_local.items()},
           "[mesh] the sharded call launched other kernels")
     check(not outputs_equal(*local), "[mesh] the two input sets give the same outputs")
-    check_counts("mesh", counts, {"select_frontend", "sparse_sampler", "sinkhorn"})
+    check_counts("mesh", counts, {"score_moments", "select_frontend", "sparse_sampler",
+                                  "sinkhorn"})
     paths["mesh"] = counts
 
 
@@ -1130,26 +1132,28 @@ GRAPH_REPLAYS = 5     # phase 13: replays of the graph of one call, each held to
 # Phase 13's paths: label, registry name, overrides, kernels it launches.
 CHAIN_PATHS = (
     ("flagship", FLAGSHIP + "_extraction", dict(max_keypoints=MAX_KEYPOINTS),
-     ("select_frontend", "sparse_sampler", "sinkhorn")),
+     ("score_moments", "select_frontend", "sparse_sampler", "sinkhorn")),
     ("fused", FLAGSHIP + "_extraction", dict(max_keypoints=MAX_KEYPOINTS, fused_detect=True),
      ("detect_frontend", "sparse_sampler", "sinkhorn")),
     ("AKAZE", AKAZE + "_extraction", {},
      ("akaze_ladder", "select_frontend", "sparse_sampler", "sinkhorn")),
-    ("dense", DENSE + "_extraction", {}, ("select_frontend", "sparse_sampler", "sinkhorn")),
+    ("dense", DENSE + "_extraction", {},
+     ("score_moments", "select_frontend", "sparse_sampler", "sinkhorn")),
     ("unoriented", UNORIENTED + "_extraction", dict(max_keypoints=MAX_KEYPOINTS),
-     ("select_frontend", "sparse_sampler", "sinkhorn")),
+     ("score_moments", "select_frontend", "sparse_sampler", "sinkhorn")),
     ("filters", FILTERS + "_extraction", dict(max_keypoints=MAX_KEYPOINTS),
-     ("select_frontend", "sparse_sampler", "sinkhorn")),
+     ("score_moments", "select_frontend", "sparse_sampler", "sinkhorn")),
     ("shi_tomasi", "shi_tomasi", {}, ()),
     ("fast", "fast", {}, ()),
     ("dog_with_score", "dog_with_score", {}, ()),
     ("akaze head", "akaze", {}, ("akaze_ladder",)),
     ("voxel_downsampling", "voxel_downsampling", {}, ()),
     ("flagship essential", FLAGSHIP + "_essential_matrix", dict(max_keypoints=MAX_KEYPOINTS),
-     ("select_frontend", "sparse_sampler", "sinkhorn", "min_eigvec9", "project_essential")),
+     ("score_moments", "select_frontend", "sparse_sampler", "sinkhorn", "min_eigvec9",
+      "project_essential")),
     ("flagship essential RANSAC", FLAGSHIP + "_essential_matrix",
      dict(max_keypoints=MAX_KEYPOINTS, **RANSAC_KW),
-     ("select_frontend", "sparse_sampler", "sinkhorn", *ESSENTIAL_KERNELS)),
+     ("score_moments", "select_frontend", "sparse_sampler", "sinkhorn", *ESSENTIAL_KERNELS)),
     ("AKAZE essential", AKAZE + "_essential_matrix", {},
      ("akaze_ladder", "select_frontend", "sparse_sampler", "sinkhorn", "min_eigvec9",
       "project_essential")),
@@ -2140,6 +2144,16 @@ def main() -> None:
         print(f"detect_frontend {mode}: "
               f"{cuda_ms(lambda: detect_frontend.detect_frontend(both, *df_args, with_angle=with_angle)):.4f} ms, plain "
               f"{cuda_ms(lambda: detect_frontend.detect_frontend_plain(both, *df_args, with_angle=with_angle)):.4f} ms")
+    # The unfused route's unmasked pass: the plain stencils bit for bit.
+    for with_angle in (True, False):
+        got = detect_frontend.score_moments(both, *df_args[:3], with_angle=with_angle)
+        want = detect_frontend.score_moments_plain(both, *df_args[:3], with_angle=with_angle)
+        exact = all(torch.equal(g, e) for g, e in zip(got, want) if e is not None)
+        mode = "with moments" if with_angle else "score only"
+        print(f"score_moments {mode} {tuple(got[0].shape)}: bit-identical {exact}; "
+              f"{cuda_ms(lambda: detect_frontend.score_moments(both, *df_args[:3], with_angle=with_angle)):.4f} ms, plain "
+              f"{cuda_ms(lambda: detect_frontend.score_moments_plain(both, *df_args[:3], with_angle=with_angle)):.4f} ms")
+        check(exact, f"score_moments {mode} not bit-identical")
     # detect_select at the fused flagship pair's settings (K, margin): the
     # detect frontend and its premasked block top-k in one launch.
     ds_args = (*df_args, cfg.max_keypoints, cfg.score_threshold, margin)
@@ -2218,7 +2232,8 @@ def main() -> None:
 
     # ---- phase 4: the flagship with the fused detect frontend --------------
     counts, fused, _ = run_path("fused", FLAGSHIP, dict(flag_kw, fused_detect=True), (g1, g2),
-                             (c1, c2), expect_zero=("select_frontend", "akaze_ladder"),
+                             (c1, c2),
+                             expect_zero=("select_frontend", "score_moments", "akaze_ladder"),
                              self_min=SELF_MIN_VALID)
     paths["fused"] = counts
     kx, _, dx_ = _sparse_detect_describe(both, matcher.cfg, table)
@@ -2234,7 +2249,7 @@ def main() -> None:
 
     # ---- phase 5: the AKAZE matcher -----------------------------------------
     paths["AKAZE"] = run_path("AKAZE", AKAZE, {}, (g1, g2), (c1, c2),
-                              expect_zero=("detect_frontend",))[0]
+                              expect_zero=("detect_frontend", "score_moments"))[0]
     akaze_gap(both, akaze, lad_args)
 
     # ---- phase 6: the with-filters and the unoriented matchers --------------
@@ -2263,7 +2278,7 @@ def main() -> None:
     frame_counts = {}
     paths["VO AKAZE"], frame_counts["VO AKAZE frame"] = run_vo(
         "VO AKAZE", AKAZE + "_essential_matrix", {}, frames_g, frames_c, k_inv,
-        ("detect_frontend", "essential_hypotheses"),
+        ("detect_frontend", "score_moments", "essential_hypotheses"),
         1.5 * JAX_AKAZE_SAMPSON_RATIO * sampson_bound, None)
     paths["VO RANSAC"], frame_counts["VO RANSAC frame"] = run_vo(
         "VO RANSAC", FLAGSHIP + "_essential_matrix", RANSAC_KW, frames_g, frames_c,

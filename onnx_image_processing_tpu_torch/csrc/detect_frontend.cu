@@ -1,17 +1,22 @@
-// Fused Shi-Tomasi score + NMS keep mask + orientation moments, and the
-// same pass followed by the premasked block top-k, for Hopper (sm_90a).
+// Fused Shi-Tomasi score + NMS keep mask + orientation moments, the same
+// pass with the NMS compiled out (the raw score and the moments), and the
+// pass followed by the premasked block top-k, for Hopper (sm_90a).
 //
 // Replaces: onnx_image_processing_tpu/kernels/detect_frontend.py,
 //   detect_frontend -> _detect_kernel (the Pallas TPU kernel), and, in
 //   detect_select, the premasked select that follows it in
-//   models/shi_tomasi_family.py _fused_detect_select. Plain twins:
-//   detect_frontend_plain and detect_select_plain in
+//   models/shi_tomasi_family.py _fused_detect_select; at NMS radius 0 (the
+//   port's score_moments), the plain Shi-Tomasi and moment stencils of the
+//   unfused route. Plain twins: detect_frontend_plain, score_moments_plain
+//   and detect_select_plain in
 //   onnx_image_processing_tpu_torch/kernels/detect_frontend.py.
 //
 // Computes, per pixel: the Shi-Tomasi lambda_min of the Sobel structure
 // tensor summed over a block_size box, clamped at 0; the NMS keep mask
 // `score >= local_max - 1e-7f` over a (2r+1)^2 window; the output
-// score * keep; and, with_angle, the Gaussian moments m10, m01. Three border
+// score * keep (at NMS radius 0 every pixel keeps its score, so the kernels
+// with RN = 0 skip the NMS stages and store the score as it comes); and,
+// with_angle, the Gaussian moments m10, m01. Three border
 // rules, each the twin's:
 //   1. the Sobel reads the edge-replicated image;
 //   2. the box sums read the edge-replicated PRODUCT maps, i.e. ix*ix etc.
@@ -425,8 +430,9 @@ __device__ void select_tail(const float* masked, const SelectArgs& s, int rn, in
 
 // One CTA per tile (blockIdx.x, blockIdx.y) of image blockIdx.z. RB, RN,
 // HALF: the box radius, NMS radius and moment half-width as template
-// constants, or -1 for the general kernel (read from a). SELECT: go on to
-// the block maxima and the top-k (detect_select).
+// constants, or -1 for the general kernel (read from a). RN = 0: no NMS
+// stage, the score written in the row pass. SELECT: go on to the block
+// maxima and the top-k (detect_select).
 template <int RB, int RN, int HALF, bool SELECT>
 __global__ void __launch_bounds__(kThreads, 2)
 detect_kernel(const __grid_constant__ Args a, const __grid_constant__ SelectArgs s) {
@@ -445,6 +451,8 @@ detect_kernel(const __grid_constant__ Args a, const __grid_constant__ SelectArgs
   const int y0 = blockIdx.y * th, x0 = blockIdx.x * tw, b = blockIdx.z;
   const size_t base = (size_t)b * h * w;
   const float* src = a.image + base;
+  constexpr bool kNms = RN != 0;
+  static_assert(kNms || !SELECT, "the select needs the NMS stage");
 
   // 1. The clamped image with its halo (border rule 1).
   // Asynchronous copies: every load of the tile in flight at once.
@@ -480,7 +488,8 @@ detect_kernel(const __grid_constant__ Args a, const __grid_constant__ SelectArgs
   __syncthreads();
 
   // 3. Row passes: the box's row sums and lambda_min, -inf outside the image
-  //    (border rule 3); the moments' horizontal pass, written out.
+  //    (border rule 3), or without the NMS stage written out; the moments'
+  //    horizontal pass, written out.
   const int bw = 2 * rb + 1;
   const size_t plane = (size_t)G.sr * G.pw;
   for (int r = warp; r < G.sr; r += kWarps) {
@@ -499,8 +508,9 @@ detect_kernel(const __grid_constant__ Args a, const __grid_constant__ SelectArgs
           sxy = add(sxy, p[2 * plane + d]);
         }
         v = shi_tomasi(sxx, syy, sxy);
+        if constexpr (!kNms) a.score[base + (size_t)y * w + x] = v;
       }
-      sc[r * G.sw + c] = v;
+      if constexpr (kNms) sc[r * G.sw + c] = v;
     }
   }
   if (a.with_angle) {
@@ -518,50 +528,52 @@ detect_kernel(const __grid_constant__ Args a, const __grid_constant__ SelectArgs
       }
     }
   }
-  __syncthreads();
-
-  // 4. The NMS window's column maxima.
-  {
-    const Walk wk(th, G.sw);
-    for (int u = warp; u < wk.items(); u += kWarps) {
-      const int seg = u / wk.nch, c = (u - seg * wk.nch) * 32 + lane;
-      const int s0 = seg * wk.len, s1 = min(s0 + wk.len, th);
-      if (c < G.sw) max_column<RN>(sc, colmax, G, rn, c, s0, s1);
-    }
-  }
-  __syncthreads();
-
-  // 5. Row maxima, the keep mask, the masked score; detect_select also masks
-  //    by the border margin and the threshold into the tile (0 past the
-  //    image: the twin's zero padding of the last blocks), then selects.
-  for (int r = warp; r < th; r += kWarps) {
-    const int y = y0 + r;
-    for (int c = lane; c < tw; c += 32) {
-      const int x = x0 + c;
-      float m = 0.f;
-      if (y < h && x < w) {
-        const float* cm = colmax + r * G.sw + c;
-        float lm = cm[0];
-#pragma unroll
-        for (int d = 1; d <= (RN >= 0 ? 2 * RN : 2 * rn); ++d) lm = fmaxf(lm, cm[d]);
-        const float v = sc[(r + rn) * G.sw + c + rn];
-        m = mul(v, v >= __fsub_rn(lm, 1e-7f) ? 1.f : 0.f);
-        a.score[base + (size_t)y * w + x] = m;
-        if constexpr (SELECT) {
-          if (s.margin > 0) {
-            const bool inside = y >= s.margin && y < h - s.margin &&
-                                x >= s.margin && x < w - s.margin;
-            m = mul(m, inside ? 1.f : 0.f);
-          }
-          m = m > s.thr ? m : 0.f;
-        }
-      }
-      if constexpr (SELECT) masked[r * tw + c] = m;
-    }
-  }
-  if constexpr (SELECT) {
+  if constexpr (kNms) {
     __syncthreads();
-    select_tail(masked, s, rn, w, th, tw, b, smem);
+
+    // 4. The NMS window's column maxima.
+    {
+      const Walk wk(th, G.sw);
+      for (int u = warp; u < wk.items(); u += kWarps) {
+        const int seg = u / wk.nch, c = (u - seg * wk.nch) * 32 + lane;
+        const int s0 = seg * wk.len, s1 = min(s0 + wk.len, th);
+        if (c < G.sw) max_column<RN>(sc, colmax, G, rn, c, s0, s1);
+      }
+    }
+    __syncthreads();
+
+    // 5. Row maxima, the keep mask, the masked score; detect_select also masks
+    //    by the border margin and the threshold into the tile (0 past the
+    //    image: the twin's zero padding of the last blocks), then selects.
+    for (int r = warp; r < th; r += kWarps) {
+      const int y = y0 + r;
+      for (int c = lane; c < tw; c += 32) {
+        const int x = x0 + c;
+        float m = 0.f;
+        if (y < h && x < w) {
+          const float* cm = colmax + r * G.sw + c;
+          float lm = cm[0];
+#pragma unroll
+          for (int d = 1; d <= (RN >= 0 ? 2 * RN : 2 * rn); ++d) lm = fmaxf(lm, cm[d]);
+          const float v = sc[(r + rn) * G.sw + c + rn];
+          m = mul(v, v >= __fsub_rn(lm, 1e-7f) ? 1.f : 0.f);
+          a.score[base + (size_t)y * w + x] = m;
+          if constexpr (SELECT) {
+            if (s.margin > 0) {
+              const bool inside = y >= s.margin && y < h - s.margin &&
+                                  x >= s.margin && x < w - s.margin;
+              m = mul(m, inside ? 1.f : 0.f);
+            }
+            m = m > s.thr ? m : 0.f;
+          }
+        }
+        if constexpr (SELECT) masked[r * tw + c] = m;
+      }
+    }
+    if constexpr (SELECT) {
+      __syncthreads();
+      select_tail(masked, s, rn, w, th, tw, b, smem);
+    }
   }
 }
 
@@ -570,21 +582,29 @@ using KernelFn = void (*)(Args, SelectArgs);
 // The instantiations: the flagship's radii (box 2, NMS 5, moments 7: block
 // 5, patch 15), box 1 with the same NMS and moments (block 3), both for the
 // usual zero taps (kAllTaps, kNoCentre), and the general kernel; each alone
-// and with the select.
-constexpr int kKernels = 6;
+// and with the select; then the same three at NMS radius 0, and boxes 2 and
+// 1 at NMS radius 0 with no moments (the halo the box's alone).
+constexpr int kKernels = 11;
 const KernelFn kKernelTable[kKernels] = {
     detect_kernel<2, 5, 7, false>, detect_kernel<2, 5, 7, true>,
     detect_kernel<1, 5, 7, false>, detect_kernel<1, 5, 7, true>,
-    detect_kernel<-1, -1, -1, false>, detect_kernel<-1, -1, -1, true>};
+    detect_kernel<-1, -1, -1, false>, detect_kernel<-1, -1, -1, true>,
+    detect_kernel<2, 0, 7, false>, detect_kernel<1, 0, 7, false>,
+    detect_kernel<-1, 0, -1, false>,
+    detect_kernel<2, 0, 0, false>, detect_kernel<1, 0, 0, false>};
 
 int kernel_index(const Args& a, bool select) {
   const int nt = 2 * a.half + 1;
   const unsigned all = (1u << nt) - 1u;
   const bool usual_taps = !a.with_angle ||
                           (a.taps.gmask == all && a.taps.tgmask == (all & ~(1u << a.half)));
-  const int fixed = a.rn == 5 && a.half == 7 && usual_taps ? (a.rb == 2 ? 0 : a.rb == 1 ? 1 : 2)
-                                                          : 2;
-  return 2 * fixed + (select ? 1 : 0);
+  const int box = a.rb == 2 ? 0 : a.rb == 1 ? 1 : 2;   // box 2, box 1, other
+  const int fixed = a.half == 7 && usual_taps ? box : 2;
+  if (a.rn == 0) {   // the select needs rn >= 1
+    if (box < 2 && !a.with_angle && a.half == 0) return 9 + box;
+    return 6 + fixed;
+  }
+  return 2 * (a.rn == 5 ? fixed : 2) + (select ? 1 : 0);
 }
 
 // Raises kernel i's dynamic shared memory limit on the current device to at
@@ -651,7 +671,8 @@ int launch(int i, const Args& a, const SelectArgs& s, int b, size_t smem, void* 
 }  // namespace
 
 // image (b, h, w) f32 -> score (b, h, w) and, with_angle, m10, m01 (b, h, w).
-// rb = block_size / 2, rn = NMS radius, half = patch_size / 2, each <= 15;
+// rb = block_size / 2, rn = NMS radius (0: the unmasked score, no NMS
+// stage), half = patch_size / 2, each <= 15;
 // host_taps, in host memory, holds the 2*half+1 Gaussian taps g, then t*g
 // (read only with_angle). th x tw is the tile of one CTA (detect_plan):
 // whole (rn+1)^2 blocks, within the card's shared memory. Returns

@@ -15,7 +15,8 @@ show that its main path went through the kernels.
 Every kernel entry that a pipeline reaches is a ``torch.library`` custom op
 in the ``oip`` namespace (``oip::nms_block_reduce``,
 ``oip::nms_select_blocks``, ``oip::box_sample``, ``oip::sinkhorn_core``,
-``oip::detect_frontend``, ``oip::detect_select``, ``oip::akaze_ladder``,
+``oip::detect_frontend``, ``oip::score_moments``, ``oip::detect_select``,
+``oip::akaze_ladder``,
 ``oip::min_eigvec9``, ``oip::project_essential``,
 ``oip::essential_hypotheses``):
 the public wrapper calls its op, and the op runs the plain version or

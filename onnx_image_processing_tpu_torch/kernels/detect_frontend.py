@@ -1,5 +1,6 @@
 """Detect frontend: Shi-Tomasi score, NMS keep mask and orientation moments
-in one pass, and the same pass followed by the premasked block top-k.
+in one pass, the same pass without the NMS (the raw score and the moments),
+and the pass followed by the premasked block top-k.
 
 Port of ``onnx_image_processing_tpu/kernels/detect_frontend.py``
 (``detect_frontend``). On a CUDA tensor :func:`detect_frontend` launches
@@ -12,9 +13,19 @@ carried over: the CUDA kernel tiles any H x W, in tiles that
 :func:`detect_select` goes on, in the same launch, to the border-margin and
 threshold masks, the block maxima and the K best blocks as keypoints: the
 premasked select that ``models/shi_tomasi_family.py`` runs after the detect
-frontend. Its plain version is :func:`detect_select_plain`. Both functions
-go through custom ops (``oip::detect_frontend``, ``oip::detect_select``),
-which ``torch.export`` keeps as nodes of its graph. Its ticket
+frontend. Its plain version is :func:`detect_select_plain`.
+
+:func:`score_moments` is the kernel at NMS radius 0, whose NMS stages are
+compiled out: the unmasked Shi-Tomasi score and the moments, bit for bit
+``shi_tomasi_score`` and ``angle_moments`` (its plain version,
+:func:`score_moments_plain`, calls those two). The unfused Shi-Tomasi
+pipelines take their maps from it on a CUDA tensor, in one launch in place
+of the stencils' ~200. It counts its launches in ``SCORE_LAUNCHES``
+(``score_moments``), the other two in ``LAUNCHES``.
+
+The three functions go through custom ops (``oip::detect_frontend``,
+``oip::score_moments``, ``oip::detect_select``), which ``torch.export``
+keeps as nodes of its graph. Its ticket
 counters are the select kernel's (``_build.ticket_counters``: one set per
 device, shared by both kernels, left at 0 by every launch).
 """
@@ -34,6 +45,7 @@ from ..ops.orientation import angle_moments
 from ..ops.shi_tomasi import shi_tomasi_score
 
 LAUNCHES = LaunchCounter("detect_frontend")
+SCORE_LAUNCHES = LaunchCounter("score_moments")
 MAX_RADIUS = 15  # box radius, NMS radius and moment half-width the kernel takes
 SMEM_LIMIT = 232_448      # shared memory one CTA can use on Hopper (bytes)
 SMEM_TWO_CTAS = 115_712   # per CTA, so that two share an SM's 228 KB (1 KB each reserved)
@@ -72,7 +84,8 @@ def _smem_floats(rb: int, rn: int, half: int, th: int, tw: int) -> int:
 def _tile_cost(th: int, tw: int, rb: int, rn: int, half: int) -> float:
     """Relative cost of one CTA's tile: separately rounded operations and
     shared-memory accesses of each pass over its region, every row's
-    columns rounded up to warps of 32 lanes, plus a fixed cost per CTA."""
+    columns rounded up to warps of 32 lanes, plus a fixed cost per CTA. At
+    NMS radius 0 the kernel has no NMS passes."""
     ph, nt, bw = rb + rn, 2 * half + 1, 2 * rb + 1
     hi = max(ph + 1, half)
     sr = th + 2 * rn
@@ -80,11 +93,12 @@ def _tile_cost(th: int, tw: int, rb: int, rn: int, half: int) -> float:
     def lanes(n):
         return -(-n // 32) * 32
 
+    nms = 0 if rn == 0 else (th * lanes(tw + 2 * rn) * (2 * rn + 2)      # NMS column max
+                             + th * lanes(tw) * (2 * (2 * rn + 1) + 5))  # row max, keep, store
     return (2 * (th + 2 * hi) * lanes(tw + 2 * hi)              # image load
             + sr * lanes(tw + 2 * ph) * (1.5 * 24 + 3 * bw)     # Sobel products, column sums
             + sr * lanes(tw + 2 * rn) * (4 * bw + 10)           # row sums, lambda_min
-            + th * lanes(tw + 2 * rn) * (2 * rn + 2)            # NMS column max
-            + th * lanes(tw) * (2 * (2 * rn + 1) + 5)           # NMS row max, keep, store
+            + nms
             + th * lanes(tw + 2 * half) * (4 * nt + 3)          # moments, vertical
             + th * lanes(tw) * 6 * nt                           # moments, horizontal
             + 10_000)
@@ -146,6 +160,17 @@ def detect_frontend_plain(image: torch.Tensor, block_size: int = 3,
         return masked, None, None
     m10, m01 = angle_moments(image, patch_size=patch_size, sigma=sigma)
     return masked, m10, m01
+
+
+def score_moments_plain(image: torch.Tensor, block_size: int = 3, patch_size: int = 15,
+                        sigma: float = 2.5, with_angle: bool = True):
+    """Plain PyTorch version of :func:`score_moments`: the Shi-Tomasi and
+    moment stencils it replaces."""
+    scores = shi_tomasi_score(image, block_size=block_size)
+    if not with_angle:
+        return scores, None, None
+    m10, m01 = angle_moments(image, patch_size=patch_size, sigma=sigma)
+    return scores, m10, m01
 
 
 def detect_select_plain(image: torch.Tensor, block_size: int = 3, patch_size: int = 15,
@@ -241,6 +266,15 @@ def detect_frontend_op(image: torch.Tensor, block_size: int, patch_size: int, si
         score, m10, m01 = detect_frontend_plain(image, block_size, patch_size, sigma,
                                                 nms_radius, with_angle)
         return (score, *_no_angle(image, with_angle, m10, m01))
+    maps = _launch_detect(image, block_size, patch_size, sigma, nms_radius, with_angle,
+                          "detect_frontend launch")
+    LAUNCHES.count += 1
+    return maps
+
+
+def _launch_detect(image: torch.Tensor, block_size: int, patch_size: int, sigma: float,
+                   nms_radius: int, with_angle: bool, what: str):
+    """One launch of ``oip_detect_frontend``: the three maps."""
     rb, half = _check(image, block_size, patch_size, sigma, nms_radius)
     b, _, h, w = image.shape
     rn = nms_radius
@@ -254,13 +288,51 @@ def detect_frontend_op(image: torch.Tensor, block_size: int, patch_size: int, si
         err = fn(_build.ptr(image), taps.ctypes.data_as(ctypes.c_void_p) if with_angle else None,
                  _build.ptr(score), *moments, b, h, w, rb, rn, half, int(with_angle),
                  plan.th, plan.tw, _build.stream(image))
-    _build.check(err, "detect_frontend launch")
-    LAUNCHES.count += 1
+    _build.check(err, what)
     return score, m10, m01
 
 
 @detect_frontend_op.register_fake
 def _(image, block_size, patch_size, sigma, nms_radius, with_angle):
+    return _maps(image, with_angle)
+
+
+def score_moments(image: torch.Tensor, block_size: int = 3, patch_size: int = 15,
+                  sigma: float = 2.5, with_angle: bool = True):
+    """The unmasked Shi-Tomasi score and the orientation moments.
+
+    Args:
+        image: (B, 1, H, W) float32.
+
+    Returns:
+        ``(score, m10, m01)``, each (B, 1, H, W): ``shi_tomasi_score(image,
+        block_size)`` and ``angle_moments(image, patch_size, sigma)`` bit for
+        bit. m10 and m01 are None when ``with_angle`` is False.
+    """
+    score, m10, m01 = score_moments_op(image, int(block_size), int(patch_size), float(sigma),
+                                       bool(with_angle))
+    return (score, m10, m01) if with_angle else (score, None, None)
+
+
+@torch.library.custom_op("oip::score_moments", mutates_args=())
+def score_moments_op(image: torch.Tensor, block_size: int, patch_size: int, sigma: float,
+                     with_angle: bool) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The op behind :func:`score_moments` (the moments (B, 1, 0, 0)
+    without the angle): the plain stencils on a CPU tensor, one launch of
+    the detect kernel at NMS radius 0 on a CUDA tensor."""
+    if not use_kernel(image):
+        score, m10, m01 = score_moments_plain(image, block_size, patch_size, sigma, with_angle)
+        return (score, *_no_angle(image, with_angle, m10, m01))
+    if not with_angle:   # no moments: a halo for the box alone, patch and sigma unread
+        patch_size, sigma = 1, 1.0
+    maps = _launch_detect(image, block_size, patch_size, sigma, 0, with_angle,
+                          "score_moments launch")
+    SCORE_LAUNCHES.count += 1
+    return maps
+
+
+@score_moments_op.register_fake
+def _(image, block_size, patch_size, sigma, with_angle):
     return _maps(image, with_angle)
 
 

@@ -11,14 +11,21 @@ The kernel-or-plain choice follows the tensors' device, so the JAX
 package's backend knobs (``use_pallas``, ``select_frontend``,
 ``integer_image``) have no effect here.
 
-``MatcherConfig.fused_detect`` is kept as a user flag only for parity with
-the JAX package's config. It picks another composition: the detect-frontend
-kernel (score * NMS mask and the moments in one pass) followed by the top-k
-over the premasked map, in place of the plain stencils and the
-select-frontend kernel; in block mode the top-k runs in the detect kernel's
-launch (``detect_select``). The two may select up to a few different keypoints
-(the premasked map keeps scores within 1e-7 of the local max), so the flag
-is not yet decided by the device as AKAZE's ladder is (ROADMAP.md).
+The two compositions of detection:
+
+- the default (``fused_detect`` False): the Shi-Tomasi score and the
+  orientation moments, then the select-frontend kernel (NMS, masks and
+  block top-k) on the score. On a CUDA tensor the score and the moments
+  come from one launch of the detect kernel with its NMS compiled out
+  (``detect_frontend.score_moments``), bit for bit the plain stencils
+  ``shi_tomasi_score`` and ``angle_moments`` that a CPU tensor runs;
+- ``MatcherConfig.fused_detect``, kept as a user flag for parity with the
+  JAX package's config: the detect-frontend kernel (score * NMS mask and the
+  moments in one pass) followed by the top-k over the premasked map; in
+  block mode the top-k runs in the detect kernel's launch
+  (``detect_select``). It may select up to a few different keypoints (the
+  premasked map keeps scores within 1e-7 of the local max), so the flag is
+  not decided by the device as AKAZE's ladder is (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -27,8 +34,8 @@ import torch
 from torch import nn
 
 from ..core import MatcherConfig
-from ..kernels import detect_frontend
-from ..ops import (BADTable, angle_estimation, angle_moments, block_route, dense_bad,
+from ..kernels import detect_frontend, use_kernel
+from ..ops import (BADTable, angle_estimation, block_route, dense_bad,
                    load_bad_params, nms_select_topk, select_topk_keypoints,
                    shi_tomasi_score, sinkhorn_match, sinkhorn_match_with_filters,
                    sparse_bad)
@@ -82,6 +89,17 @@ def _fused_detect_select(image: torch.Tensor, cfg: MatcherConfig, margin: int,
         masked, m10, m01 = detect_frontend.detect_frontend(image, **kw)
         kpts, kscores = _select_premasked(masked, cfg, margin)
     return kpts, kscores, (m10, m01) if with_angle else None
+
+
+def _score_moments(images: torch.Tensor, cfg: MatcherConfig, with_angle: bool):
+    """The unmasked Shi-Tomasi score (B, 1, H, W) and, with the angle, the
+    (m10, m01) moment maps (else None): one launch of the detect kernel
+    without its NMS on a CUDA tensor, the plain stencils on a CPU tensor."""
+    fn = (detect_frontend.score_moments if use_kernel(images)
+          else detect_frontend.score_moments_plain)
+    scores, m10, m01 = fn(images, block_size=cfg.block_size, patch_size=cfg.patch_size,
+                          sigma=cfg.sigma, with_angle=with_angle)
+    return scores, (m10, m01) if with_angle else None
 
 
 def _descriptor_kw(cfg: MatcherConfig) -> dict:
@@ -155,10 +173,7 @@ def _sparse_detect_describe(both: torch.Tensor, cfg: MatcherConfig,
         kpts, kscores, orientation_mm = _fused_detect_select(both, cfg, margin,
                                                              with_angle)
     else:
-        scores = shi_tomasi_score(both, block_size=cfg.block_size)
-        orientation_mm = (angle_moments(both, patch_size=cfg.patch_size,
-                                        sigma=cfg.sigma)
-                          if with_angle else None)
+        scores, orientation_mm = _score_moments(both, cfg, with_angle)
         kpts, kscores = _select_keypoints(scores, cfg, margin)
     desc = sparse_bad(both, kpts, table, orientation_mm=orientation_mm,
                       sampling_mode=cfg.sampling_mode, **_descriptor_kw(cfg))
@@ -180,7 +195,7 @@ def _dense_detect_describe(images: torch.Tensor, cfg: MatcherConfig,
     Returns:
         keypoints (B, K, 2), scores (B, K), descriptors (B, K, P).
     """
-    scores = shi_tomasi_score(images, block_size=cfg.block_size)
+    scores, _ = _score_moments(images, cfg, with_angle=False)
     margin = _resolve_border_margin(cfg, table, sparse=False)
     kpts, kscores = _select_keypoints(scores, cfg, margin)
     desc = sparse_bad(images, kpts, table, sampling_mode="bilinear",

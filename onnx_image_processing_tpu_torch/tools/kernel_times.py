@@ -27,6 +27,14 @@ Cases (one JSON line each, with the card's name and power limit):
 - ``detect frontend B=2`` / ``... score only``: ``kernels.detect_frontend.detect_frontend``
   at the flagship's settings (block 5, NMS 5, patch 15) on the pair, with
   and without the moments;
+- ``score moments B=2`` / ``... B=16`` / ``... B=16 score only``:
+  ``kernels.detect_frontend.score_moments`` (the unfused route's unmasked
+  score and moments, block 5, patch 15) on the pair and on a served chunk of
+  8 pairs (the pair 8 times), each with ``bound_ms``: 16 B a pixel (8 without
+  the moments) over 3.35 TB/s or the separately rounded operations over 67
+  TFLOP/s, the larger; ``plain stencils B=2`` / ``... B=16``: its plain
+  version (``ops.shi_tomasi_score`` and ``ops.angle_moments``) on the same
+  stacks; a tree without the pass times the plain stencils alone;
 - ``fused detect select B=2`` / ``... B=1``: the fused flagship's detect and
   select (``models.shi_tomasi_family._fused_detect_select``: K=512, margin
   16, with the moments) on the pair and on its first image (a VO frame): one
@@ -151,6 +159,43 @@ def detect_cases(dev: torch.device) -> list[tuple[str, object]]:
     ]
 
 
+def score_moments_cases(dev: torch.device) -> list[tuple[str, object, float | None]]:
+    """The unmasked detect pass and the plain stencils it replaces, with
+    the pass's bound in ms (None for the stencils)."""
+    import chip_smoke
+    from onnx_image_processing_tpu_torch.kernels import detect_frontend
+
+    both = torch.cat([torch.from_numpy(a) for a in chip_smoke.bench_pair()]).to(dev)
+    chunk = both.repeat(8, 1, 1, 1)
+    cfg = models.get(chip_smoke.FLAGSHIP).defaults
+    args = (cfg.block_size, cfg.patch_size, cfg.sigma)
+
+    def plain(x):
+        return ops.shi_tomasi_score(x, cfg.block_size), ops.angle_moments(x, *args[1:])
+
+    def bound_ms(x, with_angle):
+        # Per pixel: two separable Sobel derivatives (24), three products,
+        # three separable box sums (6 b), the score (8), two separable
+        # moments (8 p); the image in, the score and the moments out.
+        ops_px = 24 + 3 + 6 * cfg.block_size + 8 + (8 * cfg.patch_size if with_angle else 0)
+        return 1e3 * max((16 if with_angle else 8) * x.numel() / 3.35e12,
+                         ops_px * x.numel() / 67e12)
+
+    cases = [("plain stencils B=2", lambda: plain(both), None),
+             ("plain stencils B=16", lambda: plain(chunk), None)]
+    if not hasattr(detect_frontend, "score_moments"):
+        return cases
+    return cases + [
+        ("score moments B=2", lambda: detect_frontend.score_moments(both, *args),
+         bound_ms(both, True)),
+        ("score moments B=16", lambda: detect_frontend.score_moments(chunk, *args),
+         bound_ms(chunk, True)),
+        ("score moments B=16 score only",
+         lambda: detect_frontend.score_moments(chunk, *args, with_angle=False),
+         bound_ms(chunk, False)),
+    ]
+
+
 def essential_cases(dev: torch.device) -> list[tuple[str, object, bool]]:
     """The essential solve's kernels and library calls (flagged True) on
     the VO inputs; none on a tree without the kernels."""
@@ -205,6 +250,9 @@ def run(label: str) -> list[dict]:
     lines.append({"tree": label, "case": "oriented dense map", "ms": float(np.median(times))})
     for case, fn in select_and_ladder_cases(dev) + detect_cases(dev):
         lines.append(timed(label, case, fn))
+    for case, fn, bound in score_moments_cases(dev):
+        lines.append(timed(label, case, fn) if bound is None
+                     else {**timed(label, case, fn), "bound_ms": bound})
     for case, fn, library in essential_cases(dev):
         # cuSOLVER's eigh and svd read a status on the host: no CUDA graph.
         lines.append({"tree": label, "case": case, "ms": cuda_ms(fn),

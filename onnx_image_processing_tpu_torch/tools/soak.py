@@ -242,6 +242,8 @@ def expected_kernels(draw: dict) -> set[str]:
     expect = {"sparse_sampler", "sinkhorn"}
     if draw["family"] == "akaze":
         expect.add("akaze_ladder")
+    elif not cfg.fused_detect:
+        expect.add("score_moments")
     if cfg.fused_detect and draw["family"] != "akaze":
         expect.add("detect_frontend")
     elif block_route(cfg.topk_mode, cfg.nms_radius, h, w, cfg.max_keypoints):

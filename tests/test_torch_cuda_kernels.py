@@ -249,7 +249,7 @@ def test_flagship_launches_each_kernel(dev):
     out = fn(*imgs)
     torch.cuda.synchronize()
     assert launch_counts() == {"select_frontend": 1, "sparse_sampler": 1, "sinkhorn": 1,
-                               "detect_frontend": 0, "akaze_ladder": 0,
+                               "detect_frontend": 0, "score_moments": 1, "akaze_ladder": 0,
                                "sparse_sampler_ablate": 0, **NO_ESSENTIAL}
     assert out[0].shape == (1, 64, 2) and out[0].is_cuda
 
@@ -276,6 +276,60 @@ def test_detect_frontend_kernel_bitexact(dev, b, h, w, block, nms, patch, with_a
         if g is not None:
             assert torch.equal(g, e), (g - e).abs().max().item()
     assert (want[0] > 0).any()
+
+
+@pytest.mark.parametrize("b", [1, 2, 16])
+@pytest.mark.parametrize("h,w", [(480, 640), (97, 131)])
+@pytest.mark.parametrize("block", [3, 5])
+@pytest.mark.parametrize("patch", [15, 9])
+@pytest.mark.parametrize("with_angle", [True, False])
+def test_score_moments_kernel_bitexact(dev, b, h, w, block, patch, with_angle):
+    """The detect kernel without its NMS (the unfused route's one launch)
+    equals ``shi_tomasi_score`` and ``angle_moments`` on the same card, bit
+    for bit: the fixed instantiations (patch 15) and the general one."""
+    rng = np.random.default_rng(h * w + b + block)
+    img = torch.from_numpy(rng.uniform(0, 255, (b, 1, h, w)).astype(np.float32)).to(dev)
+    reset_launch_counts()
+    got = detect_frontend.score_moments(img, block, patch, 2.5, with_angle)
+    assert launch_counts()["score_moments"] == 1
+    want = (ops.shi_tomasi_score(img, block_size=block),
+            *(ops.angle_moments(img, patch_size=patch, sigma=2.5) if with_angle
+              else (None, None)))
+    for g, e in zip(got, want):
+        assert (g is None) == (e is None)
+        if g is not None:
+            assert torch.equal(g, e), (g - e).abs().max().item()
+    assert (want[0] > 0).any()
+
+
+def test_batched_flagship_score_moments_route_equals_plain(dev, monkeypatch):
+    """The batched flagship (8 pairs of 480 x 640) through the unmasked
+    detect pass and through the plain stencils on the card: the same
+    keypoints, scores, descriptors and P."""
+    from onnx_image_processing_tpu_torch.models import shi_tomasi_family
+
+    rng = np.random.default_rng(31)
+    i1, i2 = (torch.from_numpy(rng.uniform(0, 255, (8, 1, 480, 640)).astype(np.float32))
+              .to(dev) for _ in range(2))
+    fb = models.build_batched("shi_tomasi_angle_sparse_bad_sinkhorn", device=dev)
+
+    def run():
+        feats = shi_tomasi_family._sparse_detect_describe(torch.cat([i1, i2]), fb.cfg,
+                                                          fb.pipeline.table)
+        out = fb(i1, i2)
+        torch.cuda.synchronize()
+        return (*feats, *out)
+
+    reset_launch_counts()
+    got = run()
+    assert launch_counts()["score_moments"] == 2
+    monkeypatch.setattr(shi_tomasi_family, "use_kernel", lambda t: False)
+    reset_launch_counts()
+    want = run()
+    assert launch_counts()["score_moments"] == 0
+    assert (want[1] > 0).sum() > 1000
+    for g, e in zip(got, want):
+        assert torch.equal(g, e)
 
 
 def test_detect_frontend_kernel_zero_taps(dev):
@@ -424,7 +478,7 @@ def test_flagship_fused_detect_launches(dev, fused):
     torch.cuda.synchronize()
     counts = launch_counts()
     assert counts["detect_frontend"] == int(fused)
-    assert counts["select_frontend"] == int(not fused)
+    assert counts["select_frontend"] == counts["score_moments"] == int(not fused)
     if fused:   # detect and select: one device launch, no plain chain after it
         from onnx_image_processing_tpu_torch.models.shi_tomasi_family import (
             _fused_detect_select)
@@ -444,7 +498,7 @@ def test_akaze_matcher_launches_each_kernel(dev):
     out = fn(*imgs)
     torch.cuda.synchronize()
     assert launch_counts() == {"select_frontend": 1, "sparse_sampler": 1, "sinkhorn": 1,
-                               "detect_frontend": 0, "akaze_ladder": 1,
+                               "detect_frontend": 0, "score_moments": 0, "akaze_ladder": 1,
                                "sparse_sampler_ablate": 0, **NO_ESSENTIAL}
     assert out[0].shape == (1, 64, 2) and out[0].is_cuda
 
@@ -522,7 +576,7 @@ def test_dense_matcher_launches_and_oriented_map(dev):
     out = fn(*imgs)
     torch.cuda.synchronize()
     assert launch_counts() == {"select_frontend": 1, "sparse_sampler": 1, "sinkhorn": 1,
-                               "detect_frontend": 0, "akaze_ladder": 0,
+                               "detect_frontend": 0, "score_moments": 1, "akaze_ladder": 0,
                                "sparse_sampler_ablate": 0, **NO_ESSENTIAL}
     assert out[0].shape == (1, 64, 2) and out[0].is_cuda
     table = ops.BADTable(ops.load_bad_params(256)).to(dev)
@@ -604,7 +658,8 @@ def _to(args, dev):
 
 @pytest.mark.parametrize("case", ["nms_block_reduce", "nms_select_blocks", "box_sample",
                                   "sinkhorn_core", "detect_frontend",
-                                  "detect_frontend_no_angle", "detect_select", "akaze_ladder"])
+                                  "detect_frontend_no_angle", "detect_select", "score_moments",
+                                  "score_moments_no_angle", "akaze_ladder"])
 def test_opcheck_on_the_card(dev, case):
     """``torch.library.opcheck`` of each kernel op on CUDA tensors (the
     CPU tier's cases, moved to the card): schema, fake tensor, AOT dispatch

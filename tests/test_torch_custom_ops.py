@@ -1,6 +1,6 @@
 """The port's hand kernels as ``torch.library`` custom ops, on the CPU.
 
-Each of the seven kernel entries that a registry pipeline reaches is a
+Each of the eight kernel entries that a registry pipeline reaches is a
 custom op in the ``oip`` namespace; on a CPU tensor it runs the kernel's
 plain version. Checked here, at small shapes:
 
@@ -82,6 +82,11 @@ CASES = {
     "detect_select": (detect_frontend.detect_select_op,
                       lambda r, **s: (_image(r, **s), 3, 7, 1.5, 2, 16, 0.0, 2, True),
                       {0: {2: _H, 3: _W}}),
+    "score_moments": (detect_frontend.score_moments_op,
+                      lambda r, **s: (_image(r, **s), 5, 15, 2.5, True), {0: {2: _H, 3: _W}}),
+    "score_moments_no_angle": (detect_frontend.score_moments_op,
+                               lambda r, **s: (_image(r, **s), 5, 15, 2.5, False),
+                               {0: {2: _H, 3: _W}}),
     "akaze_ladder": (akaze_ladder.akaze_ladder_op,
                      lambda r, **s: (_image(r, **s)[:, 0].contiguous(), 2, 2, 0.05, 0.001, 5,
                                      7, 1.5),
@@ -101,12 +106,12 @@ def test_opcheck(case):
 
 
 def test_every_kernel_entry_is_an_op():
-    """The seven entries, each once in the ``oip`` namespace; the sampler's
+    """The eight entries, each once in the ``oip`` namespace; the sampler's
     stage ablation (a tool, no pipeline) stays a direct call."""
     names = {op._opoverload._schema.name for op, _, _ in CASES.values()}
     assert names == {f"oip::{n}" for n in (
         "nms_block_reduce", "nms_select_blocks", "box_sample", "sinkhorn_core",
-        "detect_frontend", "detect_select", "akaze_ladder")}
+        "detect_frontend", "detect_select", "score_moments", "akaze_ladder")}
     assert not hasattr(torch.ops.oip, "box_sample_ablated")
 
 
@@ -161,6 +166,10 @@ def test_detect_ops_keep_the_none_contract():
     assert out[1] is None and out[2] is None and torch.equal(out[0], score)
     sel = detect_frontend.detect_select(image, 3, 7, 1.5, 2, 16, 0.0, 2, with_angle=False)
     assert sel[3] is None and sel[4] is None
+    score, m10, m01 = detect_frontend.score_moments_op(image, 3, 7, 1.5, False)
+    assert m10.shape == m01.shape == (2, 1, 0, 0)
+    out = detect_frontend.score_moments(image, 3, 7, 1.5, with_angle=False)
+    assert out[1] is None and out[2] is None and torch.equal(out[0], score)
 
 
 class _Record(TorchDispatchMode):
@@ -197,6 +206,8 @@ def _wrapper_calls(rng):
          lambda: detect_frontend.detect_frontend_plain(image, 3, 7, 1.5, 2)),
         ("detect_select", lambda: detect_frontend.detect_select(image, 3, 7, 1.5, 2, 16, 0.0, 2),
          lambda: detect_frontend.detect_select_plain(image, 3, 7, 1.5, 2, 16, 0.0, 2)),
+        ("score_moments", lambda: detect_frontend.score_moments(image, 3, 7, 1.5),
+         lambda: detect_frontend.score_moments_plain(image, 3, 7, 1.5)),
         ("akaze_ladder", lambda: akaze_ladder.akaze_ladder(*lad),
          lambda: akaze_ladder.akaze_ladder_plain(*lad)),
     ]

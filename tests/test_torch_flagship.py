@@ -137,7 +137,8 @@ def test_launch_counters_stay_zero_on_cpu(gray_image_pair):
     fn(torch.from_numpy(img1), torch.from_numpy(img2))
     counts = launch_counts()
     assert set(counts) == {"select_frontend", "sparse_sampler", "sinkhorn",
-                           "detect_frontend", "akaze_ladder", "sparse_sampler_ablate",
+                           "detect_frontend", "score_moments", "akaze_ladder",
+                           "sparse_sampler_ablate",
                            "min_eigvec9", "project_essential", "essential_hypotheses"}
     assert all(c == 0 for c in counts.values()), counts
 

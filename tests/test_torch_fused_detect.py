@@ -26,7 +26,7 @@ from onnx_image_processing_tpu import models as jax_models
 from onnx_image_processing_tpu.core.config import MatcherConfig as JaxMatcherConfig
 from onnx_image_processing_tpu.models.shi_tomasi_family import (
     _fused_detect_select as jax_fused_detect_select)
-from onnx_image_processing_tpu_torch import models
+from onnx_image_processing_tpu_torch import models, ops
 from onnx_image_processing_tpu_torch.core import MatcherConfig
 from onnx_image_processing_tpu_torch.kernels import detect_frontend, launch_counts, reset_launch_counts
 from onnx_image_processing_tpu_torch.models import shi_tomasi_family
@@ -185,3 +185,49 @@ def test_fused_detect_select_route(monkeypatch, topk_mode, k, route):
     want = shi_tomasi_family._select_premasked(masked, cfg, 4)
     assert torch.equal(kpts, want[0]) and torch.equal(kscores, want[1])
     assert torch.equal(m10, m10_p) and torch.equal(m01, m01_p)
+
+
+@pytest.mark.parametrize("frontend,with_angle", [("sparse", True), ("sparse", False),
+                                                 ("dense", False)])
+def test_unfused_route_takes_score_moments(monkeypatch, frontend, with_angle):
+    """Where the device check asks for the kernel, the unfused sparse
+    frontend (angle on and off) and the dense frontend take the score and
+    the moments from one call of ``score_moments``; its plain version
+    gives the plain stencils' keypoints, scores and descriptors. On a real
+    CPU tensor no kernel counter ticks."""
+    rng = np.random.default_rng(17 + with_angle)
+    img = torch.from_numpy(rng.uniform(0, 255, (2, 1, 48, 64)).astype(np.float32))
+    cfg = MatcherConfig(max_keypoints=32, nms_radius=5, block_size=5)
+    table = BADTable(load_bad_params(cfg.num_pairs))
+    if frontend == "sparse":
+        run = lambda: _sparse_detect_describe(img, cfg, table, with_angle=with_angle)
+    else:
+        run = lambda: shi_tomasi_family._dense_detect_describe(img, cfg, table)
+    want = run()   # the CPU route: the plain stencils
+    calls = []
+    orig = detect_frontend.score_moments
+    monkeypatch.setattr(detect_frontend, "score_moments",
+                        lambda *a, **kw: calls.append(kw["with_angle"]) or orig(*a, **kw))
+    monkeypatch.setattr(shi_tomasi_family, "use_kernel", lambda t: True)
+    reset_launch_counts()
+    got = run()
+    assert calls == [with_angle]
+    assert all(c == 0 for c in launch_counts().values())
+    assert (want[1] > 0).sum() > 8
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("block,patch,with_angle", [(5, 15, True), (3, 9, True), (5, 15, False)])
+def test_score_moments_plain_is_the_stencils(block, patch, with_angle):
+    """``score_moments`` on a CPU tensor is ``shi_tomasi_score`` and
+    ``angle_moments``; without the angle its moments are None."""
+    rng = np.random.default_rng(block + patch)
+    img = torch.from_numpy(rng.uniform(0, 255, (2, 1, 37, 53)).astype(np.float32))
+    score, m10, m01 = detect_frontend.score_moments(img, block, patch, 2.5, with_angle)
+    assert torch.equal(score, ops.shi_tomasi_score(img, block_size=block))
+    if with_angle:
+        want = ops.angle_moments(img, patch_size=patch, sigma=2.5)
+        assert torch.equal(m10, want[0]) and torch.equal(m01, want[1])
+    else:
+        assert m10 is None and m01 is None

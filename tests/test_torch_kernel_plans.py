@@ -129,7 +129,7 @@ def test_ladder_plan_rejects_what_cannot_run():
 @pytest.mark.parametrize("b,h,w", [(2, 480, 640), (1, 480, 640), (1, 1080, 1920),
                                    (8, 480, 640), (2, 5, 300), (2, 97, 131), (1, 3, 9)])
 @pytest.mark.parametrize("rb,rn,half", [(2, 5, 7), (1, 5, 7), (1, 3, 7), (0, 0, 0),
-                                        (15, 15, 15), (3, 1, 4)])
+                                        (15, 15, 15), (3, 1, 4), (2, 0, 7), (2, 0, 0)])
 def test_detect_plan_tiles(b, h, w, rb, rn, half):
     """Tiles of whole (rn+1)^2 NMS blocks that cover the image, a halo as
     deep as the Sobel, box and NMS windows and the moments reach, and the
@@ -163,6 +163,17 @@ def test_detect_plan_fills_the_card(rb):
     ctas = 2 * plan.ny * plan.nx
     assert 132 <= ctas <= 2 * 132
     assert plan.th * plan.tw > 32 * 32
+
+
+@pytest.mark.parametrize("b,half", [(2, 7), (16, 7), (16, 0)])
+def test_score_moments_plan_fills_the_card(b, half):
+    """The unmasked pass (NMS radius 0) of the pair and of a served chunk
+    of 8 pairs: at least one wave of two CTAs per SM, on tiles larger than
+    32 x 32; without the moments the halo is the Sobel's and the box's."""
+    plan = detect_frontend.detect_plan(b, 480, 640, 2, 0, half, sms=132)
+    assert b * plan.ny * plan.nx >= 2 * 132
+    assert plan.th * plan.tw > 32 * 32
+    assert plan.halo == max(3, half)
 
 
 def test_detect_plan_rejects_what_cannot_run():

@@ -203,8 +203,10 @@ def test_expected_kernels_follow_the_routes():
     fused = {**base, "family": "flagship", **SMALL_DRAWS["flagship"]}
     assert soak.expected_kernels(fused) == {"detect_frontend", "sparse_sampler", "sinkhorn"}
     unfused = {**fused, "fused_detect": False}
-    assert soak.expected_kernels(unfused) == {"select_frontend", "sparse_sampler", "sinkhorn"}
-    assert soak.expected_kernels({**unfused, "topk_mode": "sort"}) == {"sparse_sampler",
+    assert soak.expected_kernels(unfused) == {"score_moments", "select_frontend",
+                                              "sparse_sampler", "sinkhorn"}
+    assert soak.expected_kernels({**unfused, "topk_mode": "sort"}) == {"score_moments",
+                                                                      "sparse_sampler",
                                                                       "sinkhorn"}
     # K past the block grid takes the flat top-k.
     assert "select_frontend" not in soak.expected_kernels({**unfused, "max_keypoints": 5000})
